@@ -1,0 +1,461 @@
+"""The acoustic trace: specular bounce loop + image-source early reflections
+(PyTorch counterpart of rayverb_tpu/ops/trace.py, ``_trace_impl`` :384-954).
+
+Every geometric query (bounce hit, reversed mic shadow ray, image-source
+path-validation segments, image mic visibility) is a batched closest-hit
+sweep, so one kernel (intersect_cuda) carries the trace's arithmetic. Each
+bounce runs exactly two sweeps: the bounce hit, then one combined sweep of
+shadow rows (+ in the image phase, the validation segments and image
+visibility rows of the rays that pass the admission gate). A trace of R
+reflections therefore launches ``sweep_count(R) = 1 + 2R`` sweeps.
+
+Differences in form from the JAX trace, none in results:
+  - the diffuse ``lax.scan`` is a Python loop
+  - the image phase computes its validation geometry only for the rays that
+    pass the exact ``seg_front`` admission gate (a dynamic-size gather),
+    where the JAX trace keeps full-width rows and parks the rest dead; the
+    rows left out could only ever produce ``img_ok = False``
+  - uint32 sort keys and hashes are computed in int64 masked to 32 bits
+Faithfully kept quirks of the reference are those listed in the JAX module
+(sign flip per bounce, pre-bounce image volume, |n.d| Lambert term).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..constants import (
+    AIR_COEFFICIENT,
+    EPSILON,
+    NUM_BANDS,
+    NUM_IMAGE_SOURCE,
+    SECONDS_PER_METER,
+)
+from .intersect import Hit, TriangleSoup, closest_hit, intersect_triangle
+
+# Origin far outside every block AABB: sweep rows parked here (with bound 0)
+# take part in no triangle block.
+_DEAD_ORIGIN = 3.0e8
+
+_U32 = 0xFFFFFFFF
+
+
+def sweep_count(nreflections: int) -> int:
+    """Closest-hit sweeps one trace launches: the direct path, then two per
+    bounce (bounce hit + shadow/validation sweep)."""
+    return 1 + 2 * nreflections
+
+
+def _spread9(x):
+    """Spread the low 9 bits of an int64 (uint32 value) to every third bit."""
+    x = x & 0x1FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _spread16(x):
+    x = x & 0xFFFF
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    x = (x | (x << 1)) & 0x55555555
+    return x
+
+
+def _quant9(x):
+    """float32 in [0, 511] -> int64 (the JAX uint32 cast truncates)."""
+    return torch.clamp(x, 0.0, 511.0).to(torch.int64)
+
+
+def _dir_morton(d):
+    """(N,) int64 holding a uint32: 27-bit Morton code of a unit direction
+    mapped into the [0,1]^3 cube."""
+    q = _quant9((d * 0.5 + 0.5) * 511.0)
+    return (
+        _spread9(q[:, 0])
+        | (_spread9(q[:, 1]) << 1)
+        | (_spread9(q[:, 2]) << 2)
+    )
+
+
+def _ray_sort_key(pos, direction, lo, inv_span):
+    """(N,) int64 holding a uint32: the ``mix6`` key, a 1:1 interleave of
+    the top 16 position-Morton and top 16 direction-Morton bits (position
+    at the higher bit of each pair)."""
+    q = _quant9((pos - lo) * inv_span * 511.0)
+    m = (
+        _spread9(q[:, 0])
+        | (_spread9(q[:, 1]) << 1)
+        | (_spread9(q[:, 2]) << 2)
+    )
+    dm = _dir_morton(direction)
+    return ((_spread16(m >> 11) << 1) | _spread16(dm >> 11)) & _U32
+
+
+class TraceOutputs(NamedTuple):
+    """Dense per-ray trace results (rayverb_tpu/ops/trace.py:162-172)."""
+
+    diffuse_volume: torch.Tensor    # (N, R, 8)
+    diffuse_position: torch.Tensor  # (N, R, 3)
+    diffuse_time: torch.Tensor      # (N, R)
+    image_volume: torch.Tensor      # (N, NUM_IMAGE_SOURCE, 8)
+    image_position: torch.Tensor    # (N, NUM_IMAGE_SOURCE, 3)
+    image_time: torch.Tensor        # (N, NUM_IMAGE_SOURCE)
+    image_index: torch.Tensor       # (N, NUM_IMAGE_SOURCE) int64, triangle+1
+
+
+def _safe_normalize(v):
+    mag = torch.linalg.norm(v, dim=-1, keepdim=True)
+    return v / torch.where(mag > 0, mag, 1.0)
+
+
+def _tri_normal(tri):
+    e0 = tri[..., 1, :] - tri[..., 0, :]
+    e1 = tri[..., 2, :] - tri[..., 0, :]
+    return _safe_normalize(torch.linalg.cross(e0, e1, dim=-1))
+
+
+def _mirror_point(p, tri):
+    """Reflect points (..., 3) through the plane of (..., 3, 3)
+    (mirror_point, kernel.cpp:216-221)."""
+    n = _tri_normal(tri)
+    return p - n * (
+        2.0 * torch.sum(n * (p - tri[..., 0, :]), dim=-1, keepdim=True)
+    )
+
+
+def _mirror_tri(tri, plane):
+    return _mirror_point(tri, plane[..., None, :, :])
+
+
+def _visible_from_hit(hit: Hit, mag):
+    """point_intersection acceptance (kernel.cpp:295)."""
+    return (~hit.hit) | (hit.t > mag)
+
+
+def _inv_permutation(perm):
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+    return inv
+
+
+def _sweep_bound(mag):
+    """Per-ray t_max of point-to-point sweeps (trace.py:286-301): hits
+    beyond it cannot change a verdict."""
+    return mag * 1.001 + 0.01
+
+
+def _gather_hit(h: Hit, idx) -> Hit:
+    return Hit(t=h.t[idx], index=h.index[idx], hit=h.hit[idx])
+
+
+def _shadow_rows(mic, intersection, alive, mag):
+    """Reversed, direction-sorted mic-shadow sweep rows (trace.py:258-283):
+    origin at the mic, direction toward the bounce point. Returns (origins,
+    dirs, bounds, decide, inv_perm, mag_eff); gather the sweep's Hit through
+    inv_perm before reading vis = (~hit) | (t > mag_eff)."""
+    d = _safe_normalize(intersection - mic)
+    key = torch.where(alive, _dir_morton(d), _U32)
+    perm = torch.argsort(key, stable=True)
+    inv_perm = _inv_permutation(perm)
+    mag_eff = mag * (1.0 - 4e-6) - EPSILON
+    al1 = alive[:, None]
+    zhat = torch.tensor([0.0, 0.0, 1.0], device=d.device)
+    origins = torch.where(al1, mic, _DEAD_ORIGIN)[perm]
+    dirs = torch.where(al1, d, zhat)[perm]
+    bounds = torch.where(alive, _sweep_bound(mag), 0.0)[perm]
+    decide = torch.where(alive, mag_eff, 0.0)[perm]
+    return origins, dirs, bounds, decide, inv_perm, mag_eff
+
+
+class _RayState(NamedTuple):
+    pos: torch.Tensor       # (N, 3)
+    dir: torch.Tensor       # (N, 3)
+    distance: torch.Tensor  # (N,)
+    volume: torch.Tensor    # (N, 8)
+    alive: torch.Tensor     # (N,) bool
+
+
+def _trace_impl(
+    soup: TriangleSoup,
+    mic,
+    source,
+    directions,
+    *,
+    nreflections: int,
+    impl: str = "auto",
+    consume_row=None,
+    resort: bool = False,
+):
+    """The trace loop. With ``consume_row=None`` returns TraceOutputs (dense
+    per-ray rows). Otherwise each diffuse row (volume (N,8), position (N,3),
+    time (N,)) is handed to ``consume_row`` as it is produced and the call
+    returns the image slots (vol, pos, time, index), each (N, S, ...).
+
+    resort=True feeds each later bounce sweep its rows sorted by the mix6
+    key (a sweep-local permutation; the ray state stays in row order)."""
+    dev = soup.device
+    mic = torch.as_tensor(np.asarray(mic, np.float32), device=dev)
+    source = torch.as_tensor(np.asarray(source, np.float32), device=dev)
+    directions = torch.as_tensor(
+        np.asarray(directions, np.float32), device=dev
+    )
+    n = directions.shape[0]
+    air = torch.from_numpy(AIR_COEFFICIENT).to(dev)
+    if resort:
+        lo_b = soup.bounds[0]
+        inv_span = 1.0 / torch.clamp(soup.bounds[1] - soup.bounds[0], min=1e-6)
+
+    def air_attenuation(distance):
+        return torch.exp(distance[..., None] * air)
+
+    def sweep(origins, dirs, t_max, t_decide=None):
+        return closest_hit(
+            origins, dirs, soup, impl=impl, t_max=t_max, t_decide=t_decide
+        )
+
+    def sorted_bounce_hit(pos, dirv, alive, do_sort):
+        o = torch.where(alive[:, None], pos, _DEAD_ORIGIN)
+        b = torch.where(alive, float("inf"), 0.0)
+        if not (resort and do_sort):
+            return sweep(o, dirv, b)
+        perm = torch.argsort(
+            _ray_sort_key(pos, dirv, lo_b, inv_span), stable=True
+        )
+        hs = sweep(o[perm], dirv[perm], b[perm])
+        return _gather_hit(hs, _inv_permutation(perm))
+
+    def diffuse_impulse(state, hit, vis, t_safe):
+        """Per-bounce diffuse Impulse fields (kernel.cpp:459-501)."""
+        alive_new = state.alive & hit.hit
+        intersection = state.pos + state.dir * t_safe[:, None]
+        new_dist = state.distance + t_safe
+        surf = soup.surface[hit.index]
+        new_vol = -state.volume * soup.specular[surf]
+        nrm = soup.normal[hit.index]
+        to_mic_dist = torch.linalg.norm(mic - intersection, dim=-1)
+        dist = torch.where(vis, new_dist + to_mic_dist, 0.0)
+        diff = torch.abs(torch.sum(nrm * state.dir, dim=-1))
+        volume_out = (
+            new_vol * air_attenuation(dist) * soup.diffuse[surf] * diff[:, None]
+        )
+        emit = alive_new & vis
+        volume_out = torch.where(emit[:, None], volume_out, 0.0)
+        position_out = torch.where(alive_new[:, None], intersection, 0.0)
+        time_out = torch.where(emit, SECONDS_PER_METER * dist, 0.0)
+        new_dir = state.dir - nrm * (
+            2.0 * torch.sum(state.dir * nrm, dim=-1, keepdim=True)
+        )
+        a1 = alive_new[:, None]
+        next_state = _RayState(
+            pos=torch.where(a1, intersection, state.pos),
+            dir=torch.where(a1, new_dir, state.dir),
+            distance=torch.where(alive_new, new_dist, state.distance),
+            volume=torch.where(a1, new_vol, state.volume),
+            alive=alive_new,
+        )
+        return next_state, (volume_out, position_out, time_out)
+
+    state = _RayState(
+        pos=source.expand(n, 3).clone(),
+        dir=directions,
+        distance=torch.zeros((n,), device=dev),
+        volume=torch.ones((n, NUM_BANDS), device=dev),
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+    )
+
+    # ---- direct path (image slot 0), identical for every ray ----
+    diff0 = (source - mic)[None]
+    dist0 = torch.linalg.norm(diff0, dim=-1)
+    h0 = sweep(source[None], _safe_normalize(mic - source)[None], _sweep_bound(dist0))
+    vis0 = _visible_from_hit(h0, dist0)
+    image_vol = [
+        torch.where(vis0[:, None], air_attenuation(dist0), 0.0).expand(n, NUM_BANDS)
+    ]
+    image_pos = [torch.where(vis0[:, None], mic + diff0, 0.0).expand(n, 3)]
+    image_time = [torch.where(vis0, SECONDS_PER_METER * dist0, 0.0).expand(n)]
+    image_idx = [torch.zeros((n,), dtype=torch.int64, device=dev)]
+
+    mic_reflection = mic.expand(n, 3)
+    prev_tris: list = []
+    diffuse_rows = []
+    emit_row = diffuse_rows.append if consume_row is None else consume_row
+
+    # ---- phase A: bounces that take part in the image-source search ----
+    n_image_bounces = min(nreflections, NUM_IMAGE_SOURCE - 1)
+    for index in range(n_image_bounces):
+        bounce = sorted_bounce_hit(state.pos, state.dir, state.alive, index > 0)
+        t_safe = torch.where(bounce.hit, bounce.t, 0.0)
+        alive_new = state.alive & bounce.hit
+        intersection = state.pos + state.dir * t_safe[:, None]
+
+        # mirror the hit triangle through the accumulated chain
+        # (kernel.cpp:379-394)
+        cur = soup.verts(bounce.index)
+        for plane in prev_tris:
+            cur = _mirror_tri(cur, plane)
+        prev_tris.append(cur)
+        mic_reflection_new = _mirror_point(mic_reflection, cur)
+
+        # exact admission gate: emitting this bounce's image needs every
+        # segment's mirrored-space hit in front (kernel.cpp:396-429)
+        img_dir = _safe_normalize(mic_reflection_new - source)
+        chain = torch.stack(prev_tris, dim=1)            # (N, k+1, 3, 3)
+        t_k = intersect_triangle(
+            source.expand(n, 1, 3), img_dir[:, None, :], chain
+        )
+        k1 = index + 1
+        mag_diffuse = torch.linalg.norm(mic - intersection, dim=-1)
+        maybe = alive_new & torch.all(t_k > EPSILON, dim=-1)
+        sel = torch.nonzero(maybe).squeeze(1)            # gated rays, in order
+        g = sel.shape[0]
+
+        # validation geometry for the gated rays only
+        src_col_s = source.expand(g, 1, 3)
+        t_k_s = t_k[sel]
+        chain_s = chain[sel]
+        ip_s = src_col_s + img_dir[sel][:, None, :] * t_k_s[..., None]
+        # un-mirror each segment point back to world space through planes
+        # l = k-1 .. 0 (kernel.cpp:412-414)
+        ip_world_cols = []
+        for k in range(k1):
+            p = ip_s[:, k]
+            for l in range(k - 1, -1, -1):
+                p = _mirror_point(p, chain_s[:, l])
+            ip_world_cols.append(p)
+        ip_world_s = torch.stack(ip_world_cols, dim=1)   # (g, k+1, 3)
+        prev_pts_s = torch.cat([src_col_s, ip_world_s[:, :-1]], dim=1)
+        seg_vec_s = ip_world_s - prev_pts_s
+        seg_dir_s = _safe_normalize(seg_vec_s)
+        seg_len_s = torch.linalg.norm(seg_vec_s, dim=-1)
+        final_ip_s = ip_world_s[:, index]
+        to_mic_image_s = mic - final_ip_s
+        mag_image_s = torch.linalg.norm(to_mic_image_s, dim=-1)
+
+        sh_origin, sh_d, sh_bound, sh_decide, sh_inv, sh_mag_eff = _shadow_rows(
+            mic, intersection, alive_new, mag_diffuse
+        )
+        # one sweep: shadow rows, then segments, then image visibility;
+        # only the validation segments need the exact closest hit
+        hits = sweep(
+            torch.cat([sh_origin, prev_pts_s.reshape(g * k1, 3), final_ip_s]),
+            torch.cat(
+                [sh_d, seg_dir_s.reshape(g * k1, 3), _safe_normalize(to_mic_image_s)]
+            ),
+            torch.cat(
+                [sh_bound, _sweep_bound(seg_len_s).reshape(g * k1),
+                 _sweep_bound(mag_image_s)]
+            ),
+            torch.cat(
+                [sh_decide, torch.zeros((g * k1,), device=dev), mag_image_s]
+            ),
+        )
+        seg_t_s = hits.t[n : n + g * k1].reshape(g, k1)
+        seg_hit_s = hits.hit[n : n + g * k1].reshape(g, k1)
+        vis = _visible_from_hit(
+            _gather_hit(_gather_hit(hits, slice(0, n)), sh_inv), sh_mag_eff
+        )
+
+        # validation: each segment's scene hit must land on its endpoint
+        # (kernel.cpp:418-428)
+        new_ip_s = prev_pts_s + seg_dir_s * torch.where(
+            seg_hit_s, seg_t_s, 0.0
+        )[..., None]
+        seg_ok_s = (
+            (t_k_s > EPSILON)
+            & seg_hit_s
+            & torch.all(torch.abs(new_ip_s - ip_world_s) < EPSILON, dim=-1)
+        )
+        img_vis_s = (~hits.hit[n + g * k1 :]) | (hits.t[n + g * k1 :] > mag_image_s)
+        img_ok = torch.zeros((n,), dtype=torch.bool, device=dev)
+        img_ok[sel] = torch.all(seg_ok_s, dim=-1) & img_vis_s
+
+        # the image impulse carries the PRE-bounce volume (kernel.cpp:442-455)
+        init_diff = source - mic_reflection_new
+        init_dist = torch.linalg.norm(init_diff, dim=-1)
+        ok1 = img_ok[:, None]
+        image_vol.append(
+            torch.where(ok1, state.volume * air_attenuation(init_dist), 0.0)
+        )
+        image_pos.append(torch.where(ok1, mic + init_diff, 0.0))
+        image_time.append(torch.where(img_ok, SECONDS_PER_METER * init_dist, 0.0))
+        image_idx.append(torch.where(img_ok, bounce.index + 1, 0))
+
+        mic_reflection = mic_reflection_new
+        state, row = diffuse_impulse(state, bounce, vis, t_safe)
+        emit_row(row)
+
+    # ---- phase B: pure diffuse bounces ----
+    for _ in range(nreflections - n_image_bounces):
+        bounce = sorted_bounce_hit(state.pos, state.dir, state.alive, True)
+        t_safe = torch.where(bounce.hit, bounce.t, 0.0)
+        intersection = state.pos + state.dir * t_safe[:, None]
+        alive2 = state.alive & bounce.hit
+        mag = torch.linalg.norm(mic - intersection, dim=-1)
+        sh_origin, sh_d, sh_bound, sh_decide, sh_inv, sh_mag_eff = _shadow_rows(
+            mic, intersection, alive2, mag
+        )
+        shadow = sweep(sh_origin, sh_d, sh_bound, sh_decide)
+        vis = _visible_from_hit(_gather_hit(shadow, sh_inv), sh_mag_eff)
+        state, row = diffuse_impulse(state, bounce, vis, t_safe)
+        emit_row(row)
+
+    # pad image slots when nreflections < NUM_IMAGE_SOURCE - 1
+    while len(image_vol) < NUM_IMAGE_SOURCE:
+        image_vol.append(torch.zeros((n, NUM_BANDS), device=dev))
+        image_pos.append(torch.zeros((n, 3), device=dev))
+        image_time.append(torch.zeros((n,), device=dev))
+        image_idx.append(torch.zeros((n,), dtype=torch.int64, device=dev))
+
+    images = (
+        torch.stack(image_vol, dim=1),
+        torch.stack(image_pos, dim=1),
+        torch.stack(image_time, dim=1),
+        torch.stack(image_idx, dim=1),
+    )
+    if consume_row is not None:
+        return images
+
+    def stack(i, width):
+        if not diffuse_rows:
+            return torch.zeros((n, 0) + width, device=dev)
+        return torch.stack([r[i] for r in diffuse_rows], dim=1)
+
+    return TraceOutputs(
+        diffuse_volume=stack(0, (NUM_BANDS,)),
+        diffuse_position=stack(1, (3,)),
+        diffuse_time=stack(2, ()),
+        image_volume=images[0],
+        image_position=images[1],
+        image_time=images[2],
+        image_index=images[3],
+    )
+
+
+def trace_chunk(
+    soup: TriangleSoup,
+    mic,
+    source,
+    directions,
+    *,
+    nreflections: int,
+    impl: str = "auto",
+    resort: bool = False,
+) -> TraceOutputs:
+    """Trace all rays end to end and return the dense per-ray records
+    (the counterpart of rayverb_tpu.ops.trace.trace_chunk)."""
+    return _trace_impl(
+        soup,
+        mic,
+        source,
+        directions,
+        nreflections=nreflections,
+        impl=impl,
+        resort=resort,
+    )

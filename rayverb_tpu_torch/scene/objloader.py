@@ -1,0 +1,113 @@
+"""Wavefront OBJ/MTL import.
+
+The reference delegates mesh import to Assimp with triangulation
+(reference rayverb/rayverb.cpp:447-461) and groups faces into per-material
+meshes. This is a from-scratch OBJ/MTL reader producing the same logical
+result: a flat list of triangles, each carrying the *material name* active
+when its face was declared. Polygon faces are fan-triangulated, matching
+Assimp's aiProcess_Triangulate behaviour on the convex faces found in the
+demo corpus.
+
+This port keeps the pure-Python reader only. The other model formats of the
+JAX package (DXF, STL, PLY, glTF/GLB, OFF) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+
+
+@dataclass
+class RawMesh:
+    """Triangle soup with per-triangle material names.
+
+    vertices: (V, 3) float32
+    faces:    (T, 3) int64 indices into vertices
+    face_materials: length-T list of material names ('' when no usemtl seen)
+    """
+
+    vertices: np.ndarray
+    faces: np.ndarray
+    face_materials: list = field(default_factory=list)
+
+    @property
+    def num_triangles(self) -> int:
+        return int(self.faces.shape[0])
+
+
+def _parse_index(token: str, nverts: int) -> int:
+    """Resolve an OBJ face index token ('3', '3/1', '3//2', '-1') to 0-based."""
+    head = token.split("/", 1)[0]
+    idx = int(head)
+    if idx > 0:
+        return idx - 1
+    if idx < 0:
+        return nverts + idx
+    raise ValueError("OBJ face index 0 is invalid")
+
+
+def load_obj_python(path: str) -> RawMesh:
+    """Parse an OBJ file into a :class:`RawMesh` (pure-Python reference
+    implementation — the semantic spec for the native importer).
+
+    Only geometry statements are honoured (v, f, usemtl); texture/normal
+    indices inside face tokens are ignored, as are smoothing groups, lines
+    and points — the raytracer consumes pure triangle geometry.
+    """
+    vertices: list = []
+    faces: list = []
+    face_materials: list = []
+    current_material = ""
+
+    with open(path, "r", errors="replace") as fh:
+        for line in fh:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            tag = parts[0]
+            if tag == "v" and len(parts) >= 4:
+                vertices.append(
+                    (float(parts[1]), float(parts[2]), float(parts[3]))
+                )
+            elif tag == "usemtl":
+                current_material = parts[1] if len(parts) > 1 else ""
+            elif tag == "f" and len(parts) >= 4:
+                nverts = len(vertices)
+                idx = [_parse_index(tok, nverts) for tok in parts[1:]]
+                # Fan triangulation (convex polygons), like Assimp's
+                # aiProcess_Triangulate on the demo corpus.
+                for k in range(1, len(idx) - 1):
+                    faces.append((idx[0], idx[k], idx[k + 1]))
+                    face_materials.append(current_material)
+
+    if not vertices or not faces:
+        raise ValueError(f"OBJ file {path!r} contains no triangles")
+
+    return RawMesh(
+        vertices=np.asarray(vertices, dtype=np.float32),
+        faces=np.asarray(faces, dtype=np.int64),
+        face_materials=face_materials,
+    )
+
+
+def load_obj(path: str) -> RawMesh:
+    """Parse an OBJ file with the pure-Python reader."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    return load_obj_python(path)
+
+
+def load_mesh(path: str) -> RawMesh:
+    """Load a 3D model. Only Wavefront OBJ (+MTL) is ported; other
+    extensions raise a clear error."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".obj":
+        return load_obj(path)
+    raise ValueError(
+        f"Unsupported model format {ext!r}; this port reads .obj only "
+        "(DXF, STL, PLY, glTF/GLB and OFF are not ported yet)"
+    )

@@ -1,0 +1,65 @@
+"""Ray-direction generation (numpy), a copy of rayverb_tpu/utils/directions.py
+(:26-79) without its JAX variant.
+
+The reference draws uniform sphere points via the z/theta parameterisation
+with a wall-clock-seeded std RNG (reference rayverb/helpers.cpp:62-81). Here
+the generator is a numpy ``default_rng`` with an explicit seed, so the same
+seed gives the same directions, bit for bit, as the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _morton3(q: np.ndarray) -> np.ndarray:
+    """Interleave 3x10-bit quantized coordinates into 30-bit Morton codes.
+    q: (T, 3) uint32 in [0, 1024). (A copy of rayverb_tpu/ops/intersect.py:78.)"""
+
+    def spread(x):
+        x = x.astype(np.uint64)
+        x = (x | (x << 16)) & np.uint64(0x030000FF)
+        x = (x | (x << 8)) & np.uint64(0x0300F00F)
+        x = (x | (x << 4)) & np.uint64(0x030C30C3)
+        x = (x | (x << 2)) & np.uint64(0x09249249)
+        return x
+
+    return spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) | (
+        spread(q[:, 2]) << np.uint64(2)
+    )
+
+
+def random_directions(num: int, seed: int | None = None) -> np.ndarray:
+    """(num, 3) float32 uniformly distributed unit vectors
+    (helpers.cpp:69-81, made deterministic)."""
+    rng = np.random.default_rng(0 if seed is None else seed)
+    z = rng.uniform(-1.0, 1.0, num)
+    theta = rng.uniform(-np.pi, np.pi, num)
+    zt = np.sqrt(np.maximum(0.0, 1.0 - z * z))
+    return np.stack(
+        [zt * np.cos(theta), zt * np.sin(theta), z], axis=-1
+    ).astype(np.float32)
+
+
+def uniform_directions(num: int) -> np.ndarray:
+    """(num, 3) float32 deterministic quasi-uniform directions via the
+    Fibonacci sphere lattice (the reference's undefined
+    `getUniformDirections`, helpers.h:30)."""
+    i = np.arange(num, dtype=np.float64) + 0.5
+    z = 1.0 - 2.0 * i / num
+    theta = np.pi * (1.0 + 5.0**0.5) * i
+    zt = np.sqrt(np.maximum(0.0, 1.0 - z * z))
+    return np.stack(
+        [zt * np.cos(theta), zt * np.sin(theta), z], axis=-1
+    ).astype(np.float32)
+
+
+def morton_sort(directions: np.ndarray) -> np.ndarray:
+    """Reorder unit directions along a Morton (Z-order) curve so that
+    consecutive rays point into nearby solid angles. Ray order carries no
+    meaning; neighbouring rays in one thread block then share the triangle
+    tiles they need, which is what the sweep kernel's tile skip feeds on."""
+    d = np.asarray(directions, np.float32)
+    q = np.clip((d + 1.0) * 0.5 * 1023.0, 0, 1023).astype(np.uint32)
+    order = np.argsort(_morton3(q), kind="stable")
+    return d[order]
