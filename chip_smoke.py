@@ -8,22 +8,32 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each printed as one JSON line with its wall time:
 
   1. device   nvidia-smi's name and power limit, the CUDA device name, and
-              the nvcc build of the closest-hit kernel (with its seconds)
+              the nvcc build of the closest-hit kernels (with its seconds)
   2. kernel   the CUDA kernel against its plain PyTorch version on the
               vault scene, on the card: 50,000 Morton-sorted primary rays,
               the first bounce's reversed shadow rows, a ragged batch of 777
               rays with bounds and any-hit thresholds, and a 5-triangle
-              scene. best_t and best_i must be equal bit for bit.
+              scene, each at one slice in table order, at the schedule the
+              port chooses (sweep_schedule) and at the slice counts of
+              SLICE_SCAN. best_t, best_i and the executed-pair counters
+              must be equal bit for bit; the order table of the order
+              kernel must equal its plain version's, on the card and on the
+              CPU, also on tables of 16,384 and 32,768 random blocks;
+              closest-hit rows and decided rows' verdicts must not depend
+              on the schedule.
   3. main     the port's CLI renders the full vault demo (50,000 rays x 128
               reflections, two speakers, 44.1 kHz, 24-bit) on cuda, cold and
               warm; the WAV must read back as 2 finite, non-silent channels
-              and every sweep of the render must go through the kernel
+              and every sweep of the render must go through the order and
+              sweep kernels
   4. render   render_fused on the vault with the kernel and with the plain
               sweep: the IRs agree to max|d| <= 1e-6 * peak
   5. small    a small box render on the card against the same render on
               the CPU (the path the CPU tests hold against the JAX package):
               within -60 dB of peak
-  6. kernels  one JSON line per the port's kernel table
+  6. kernels  one JSON line per the port's kernel table; the device line
+              also carries the instruction counts of the sweep kernel's
+              loops, read from `cuobjdump -sass` where the toolkit has it
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them. Any failure prints
@@ -98,6 +108,46 @@ def _nvidia_smi():
     return proc.stdout.strip().splitlines()[0]
 
 
+def _sass_loops(lib_path):
+    """Backward-branch loops of the sweep kernel's SASS (cuobjdump -sass):
+    per loop, its instruction count, the instructions before its first
+    conditional forward branch (run on every pass), and the counts of a
+    few opcodes. None where cuobjdump is missing."""
+    import re
+    import shutil
+
+    from rayverb_tpu_torch.cuda_build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        tool = shutil.which("cuobjdump")
+    if not tool:
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=60).stdout
+    instrs, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "closest_hit_sweep" in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if inside and m:
+            instrs.append((int(m.group(1), 16), m.group(2).strip()))
+    loops = []
+    for addr, text in instrs:
+        m = re.search(r"BRA\s+(?:\S+\s+)?(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            body = [t for a, t in instrs if int(m.group(1), 16) <= a <= addr]
+            head = next((i for i, t in enumerate(body)
+                         if t.startswith("@") and " BRA " in f" {t} "), len(body))
+            ops = [t.split()[1] if t.startswith("@") else t.split()[0] for t in body]
+            count = lambda p: sum(o.split(".")[0] == p for o in ops)  # noqa: E731
+            loops.append({"instructions": len(body), "head": head, **{
+                k: count(k) for k in ("FADD", "FMUL", "FFMA", "FSETP", "MUFU",
+                                      "LDS", "BRA", "CALL")}})
+    return {"kernel_instructions": len(instrs), "loops": loops}
+
+
 def _cuda_ms(fn, reps):
     import torch
 
@@ -113,56 +163,166 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def _compare_batch(name, soup, o, d, tmax, decide):
-    """Kernel vs plain on one batch; raises unless bit-equal. Returns the
-    batch's record (rows, mismatches, ms, plain_ms, bounds)."""
+# table slices timed (and compared) beside the two schedules of record
+SLICE_SCAN = (1, 2, 4, 8, 16)
+
+
+def _pair_bound_ms(pairs):
+    return pairs * FLOPS_PER_PAIR / FP32_PEAK * 1e3
+
+
+def _run_schedule(soup, args, order, slices):
+    """Kernel vs plain on one batch and schedule; raises unless results
+    and executed-pair counters are equal bit for bit. Returns the record."""
     import torch
 
     from rayverb_tpu_torch.ops import intersect_cuda
     from rayverb_tpu_torch.ops.intersect import closest_hit_plain
 
-    args = (o, d, soup.packed, soup.block_aabb, tmax, decide)
-    pt, pi, executed = closest_hit_plain(*args, with_stats=True)
-    kt, ki = intersect_cuda.closest_hit_cuda(*args)
+    pt, pi, p_ex = closest_hit_plain(*args, order, slices, with_stats=True)
+    kt, ki, k_ex = intersect_cuda.closest_hit_cuda(*args, order, slices, with_stats=True)
     torch.cuda.synchronize()
-    mism_t = int((pt.view(torch.int32) != kt.view(torch.int32)).sum())
-    mism_i = int((pi != ki).sum())
+    rec = {
+        "slices": slices,
+        "hits": int((ki >= 0).sum()),
+        "mismatch_t": int((pt.view(torch.int32) != kt.view(torch.int32)).sum()),
+        "mismatch_i": int((pi != ki).sum()),
+        "mismatch_executed": int((p_ex != k_ex).sum()),
+        "executed_pairs": int(k_ex.sum()),
+    }
     both = torch.isfinite(pt) & torch.isfinite(kt)
-    max_abs = float((pt - kt).abs()[both].max()) if bool(both.any()) else 0.0
+    rec["max_abs_err"] = float((pt - kt).abs()[both].max()) if bool(both.any()) else 0.0
+    rec["ms"] = _cuda_ms(lambda: intersect_cuda.closest_hit_cuda(*args, order, slices), 20)
+    rec["bound_own_ms"] = _pair_bound_ms(rec["executed_pairs"])
+    if rec["mismatch_t"] or rec["mismatch_i"] or rec["mismatch_executed"]:
+        raise AssertionError(f"kernel != plain at {slices} slices: {rec}")
+    return rec, (kt, ki)
+
+
+def _compare_batch(name, soup, o, d, tmax, decide):
+    """Kernel vs plain on one batch, bit for bit, at one slice in table
+    order, at the chosen schedule (sweep_schedule) and over
+    SLICE_SCAN with the near-to-far order. Returns the batch's record: rows,
+    mismatches, executed pairs, times, bounds."""
+    import torch
+
+    from rayverb_tpu_torch.ops import intersect_cuda
+    from rayverb_tpu_torch.ops.intersect import (
+        SWEEP_RAYS, block_order, closest_hit_plain, sweep_schedule, table_order,
+    )
+
+    args = (o, d, soup.packed, soup.block_aabb, tmax, decide)
     m = o.shape[0]
+    nb = soup.block_aabb.shape[0]
     tp = soup.packed.shape[0]
-    ms = _cuda_ms(lambda: intersect_cuda.closest_hit_cuda(*args), 20)
-    plain_ms = _cuda_ms(lambda: closest_hit_plain(*args), 2)
+    order, slices = sweep_schedule(o, d, tmax, soup.block_aabb,
+                                   bool((decide > 0).any()))
+    # the order kernel against its plain version, on the card and on the CPU
+    order_args = (o, d, tmax, soup.block_aabb)
+    plain_order = block_order(*order_args)
+    cpu_order = block_order(*(x.cpu() for x in order_args))
+    order_mismatch = int((order != plain_order).sum()) + int((order.cpu() != cpu_order).sum())
+    if order_mismatch:
+        raise AssertionError(f"batch {name}: the order table differs between its kernel, "
+                             f"its plain version and the CPU ({order_mismatch} entries)")
+    order_ms = _cuda_ms(lambda: intersect_cuda.block_order_cuda(*order_args), 20)
+    order_plain_ms = _cuda_ms(lambda: block_order(*order_args), 5)
+    table, table_out = _run_schedule(soup, args, table_order(m, nb, o.device), 1)
+    chosen, chosen_out = _run_schedule(soup, args, order, slices)
+    closest = decide == 0
+    for a, b in zip(table_out, chosen_out):
+        if not torch.equal(a[closest].view(torch.int32), b[closest].view(torch.int32)):
+            raise AssertionError(f"batch {name}: closest-hit rows depend on the schedule")
+    # decided rows may return another witness, never another verdict
+    verdict = lambda out: (out[1] < 0) | (out[0] > decide)  # noqa: E731
+    if not torch.equal(verdict(table_out)[~closest], verdict(chosen_out)[~closest]):
+        raise AssertionError(f"batch {name}: decided rows' verdicts depend on the schedule")
+    scan = [_run_schedule(soup, args, order, s)[0]
+            for s in SLICE_SCAN if s <= nb // 2]
+    plain_ms = _cuda_ms(lambda: closest_hit_plain(*args, order, slices), 2)
     # least time for this work on the card: the larger of the executed pair
     # tests' FP32 operations over the FP32 peak and the bytes the function
     # must move (inputs read once, outputs written once) over HBM bandwidth
-    pairs = int(executed.sum())
-    in_bytes = 4 * (8 * m + tp * 16 + soup.block_aabb.numel())
+    in_bytes = 4 * (8 * m + tp * 16 + soup.block_aabb.numel() + order.numel())
     out_bytes = 8 * m
-    ops_ms = pairs * FLOPS_PER_PAIR / FP32_PEAK * 1e3
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    # bound_ms counts the executed pairs of one slice in table order, which
+    # do not depend on the schedule chosen; bound_own_ms counts the chosen
+    # schedule's own pairs
+    ops_ms = _pair_bound_ms(table["executed_pairs"])
+    own_ms = _pair_bound_ms(chosen["executed_pairs"])
     # the same bound over ISSUED pairs (every ray against every row) and
-    # the table re-read once per 128-ray thread block
-    issued_ops_ms = m * tp * FLOPS_PER_PAIR / FP32_PEAK * 1e3
-    reread_ms = (-(-m // 128)) * tp * 64 / HBM_BYTES_PER_S * 1e3
+    # the table re-read once per thread block
+    issued_ops_ms = _pair_bound_ms(m * tp)
+    reread_ms = (-(-m // SWEEP_RAYS)) * tp * 64 / HBM_BYTES_PER_S * 1e3
+    # the order kernel's least time: t_max read, one representative ray per
+    # group, the AABBs once, the table written; ~40 FP32 operations per
+    # (group, block) slab test
+    order_bytes_ms = (4 * (m + order.shape[0] * 6 + 8 * nb + order.numel())
+                      / HBM_BYTES_PER_S * 1e3)
+    order_ops_ms = order.numel() * 40 / FP32_PEAK * 1e3
     rec = {
         "batch": name,
         "rows": m,
-        "hits": int((ki >= 0).sum()),
-        "mismatch_t": mism_t,
-        "mismatch_i": mism_i,
-        "max_abs_err": max_abs,
-        "ms": ms,
+        "hits": chosen["hits"],
+        "mismatch_t": table["mismatch_t"] + chosen["mismatch_t"],
+        "mismatch_i": table["mismatch_i"] + chosen["mismatch_i"],
+        "mismatch_executed": table["mismatch_executed"] + chosen["mismatch_executed"],
+        "max_abs_err": max(table["max_abs_err"], chosen["max_abs_err"]),
+        "schedule": {"order": "near_to_far", "slices": slices,
+                     "ctas": -(-m // SWEEP_RAYS) * slices},
+        "ms": chosen["ms"],
+        "table_s1_ms": table["ms"],
         "plain_ms": plain_ms,
-        "executed_pairs": pairs,
+        "executed_pairs": chosen["executed_pairs"],
+        "table_s1_executed_pairs": table["executed_pairs"],
         "issued_pairs": m * tp,
         "bound_ms": max(ops_ms, bytes_ms),
+        "bound_own_ms": max(own_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "bound_issued_ms": max(issued_ops_ms, reread_ms),
+        "slice_scan": [{k: r[k] for k in ("slices", "ms", "executed_pairs")}
+                       for r in scan],
+        "order_mismatch": order_mismatch,
+        "order_ms": order_ms,
+        "order_plain_ms": order_plain_ms,
+        "order_bound_ms": max(order_bytes_ms, order_ops_ms),
+        "order_bound_by": "operations" if order_ops_ms >= order_bytes_ms else "bytes",
     }
-    if mism_t or mism_i:
-        raise AssertionError(f"kernel != plain on batch {name}: {rec}")
     return rec
+
+
+def _order_large_tables(dev, rng):
+    """The order kernel against block_order on tables of random AABBs past
+    the vault's size: 16,384 blocks (keys sorted in shared memory) and
+    32,768 (past shared memory: keys sorted in device memory). 100 rays in
+    4 groups, the last group dead. Raises on any difference."""
+    import numpy as np
+    import torch
+
+    from rayverb_tpu_torch.ops import intersect_cuda
+    from rayverb_tpu_torch.ops.intersect import block_order
+
+    out = []
+    for nb in (16384, 32768):
+        lo = rng.uniform(-50, 50, (nb, 3))
+        box = np.zeros((nb, 8), np.float32)
+        box[:, 0:3] = lo
+        box[:, 3:6] = lo + rng.uniform(0.1, 5, (nb, 3))
+        o = rng.uniform(-20, 20, (100, 3)).astype(np.float32)
+        d = rng.standard_normal((100, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        tm = np.where(np.arange(100) < 96, np.inf, 0.0).astype(np.float32)
+        args = [torch.from_numpy(x).to(dev) for x in (o, d, tm, box)]
+        kern = intersect_cuda.block_order_cuda(*args)
+        plain = block_order(*args)
+        rec = {"nblocks": nb, "groups": int(kern.shape[0]),
+               "mismatch": int((kern != plain).sum()),
+               "ms": _cuda_ms(lambda: intersect_cuda.block_order_cuda(*args), 3)}
+        out.append(rec)
+        if rec["mismatch"]:
+            raise AssertionError(f"order kernel != block_order on a large table: {rec}")
+    return out
 
 
 def _phase_kernel(ph, dev):
@@ -227,12 +387,15 @@ def _phase_kernel(ph, dev):
                        torch.full((1000,), float("inf"), device=dev),
                        torch.zeros((1000,), device=dev))
     )
+    ph.out["order_large_tables"] = _order_large_tables(dev, rng)
     for b in batches:
         if b["hits"] == 0:
             raise AssertionError(f"batch {b['batch']} has no hits: {b}")
     ph.out["batches"] = batches
     ph.out["rows_compared"] = sum(b["rows"] for b in batches)
-    ph.out["mismatches"] = sum(b["mismatch_t"] + b["mismatch_i"] for b in batches)
+    ph.out["mismatches"] = sum(
+        b["mismatch_t"] + b["mismatch_i"] + b["mismatch_executed"] for b in batches
+    )
     return batches
 
 
@@ -250,15 +413,18 @@ def _phase_main(ph, tmp):
     for label in ("cold", "warm"):
         out = os.path.join(tmp, f"vault_{label}.wav")
         intersect_cuda.launches = 0
+        intersect_cuda.order_launches = 0
         t0 = time.perf_counter()
         rc = cli.main([*VAULT, out, "--stats", "--device", "cuda"])
         wall = time.perf_counter() - t0
         launches = intersect_cuda.launches
+        order_launches = intersect_cuda.order_launches
         if rc != 0:
             raise AssertionError(f"{label} CLI run exited {rc}")
         data, sr, bits = read_audio(out)
         peak = float(np.abs(data).max()) if data.size else 0.0
         run = {"run": label, "wall_s": wall, "launches": launches,
+               "order_launches": order_launches,
                "channels": int(data.shape[0]), "samples": int(data.shape[1]),
                "sample_rate": sr, "bit_depth": bits, "peak": peak}
         runs.append(run)
@@ -266,10 +432,11 @@ def _phase_main(ph, tmp):
             raise AssertionError(f"unexpected WAV shape {data.shape}")
         if not np.all(np.isfinite(data)) or peak == 0.0:
             raise AssertionError(f"WAV is not finite or is silent: {run}")
-        if launches != expected:
+        if launches != expected or order_launches != expected:
             raise AssertionError(
-                f"{label} run launched the kernel {launches} times, "
-                f"expected {expected} sweeps"
+                f"{label} run launched the sweep kernel {launches} times and "
+                f"the order kernel {order_launches} times, expected "
+                f"{expected} sweeps"
             )
     ph.out["runs"] = runs
     ph.out["expected_sweeps"] = expected
@@ -387,6 +554,7 @@ def main() -> int:
             log = cuda_build.build_info["closest_hit"]["log"]
             ph.out["ptxas"] = [ln.strip() for ln in log.splitlines()
                                if "registers" in ln or "spill" in ln]
+            ph.out["sass"] = _sass_loops(cuda_build.build_info["closest_hit"]["path"])
         with Phase("kernel_vs_plain") as ph:
             batches = _phase_kernel(ph, dev)
         with Phase("main_path") as ph:
@@ -415,7 +583,22 @@ def main() -> int:
         "ms": primary["ms"],
         "plain_ms": primary["plain_ms"],
         "bound_ms": primary["bound_ms"],
+        "bound_own_ms": primary["bound_own_ms"],
         "bound_by": primary["bound_by"],
+        "library_ms": None,
+        "executed_pairs": primary["executed_pairs"],
+        "schedule": primary["schedule"],
+    }, {
+        "name": "closest_hit_order",
+        "route": "cuda",
+        "source": "rayverb_tpu_torch/csrc/closest_hit.cu",
+        "replaces": "rayverb_tpu/ops/intersect_pallas.py:604",
+        "launches": runs[-1]["order_launches"],
+        "max_abs_err": float(max(b["order_mismatch"] for b in batches)),
+        "ms": primary["order_ms"],
+        "plain_ms": primary["order_plain_ms"],
+        "bound_ms": primary["order_bound_ms"],
+        "bound_by": primary["order_bound_by"],
         "library_ms": None,
     }]})
     print(smi, flush=True)

@@ -13,34 +13,87 @@
 //   - at each triangle block's entry a ray takes part only if its bound is
 //     positive, it is undecided (best_t >= t_decide) and its segment
 //     [EPSILON, best_t] meets the block's AABB (slab test)
+// The schedule is an input, shared with closest_hit_plain: each group of
+// kRays rays walks its own row of `order` (near to far: closest_hit_order,
+// whose plain version is intersect.py::block_order), cut into `slices`
+// contiguous runs.
 //
-// What bounds it on the H100: operations. A pair test is ~40 FP32
-// operations (one divide among them) on 13 floats of a triangle row that
-// every ray of a thread block shares, so the table's bytes are re-read from
-// L2 once per thread block and per needed tile; device-memory traffic is a
-// few bytes per ray. What the design does about it: one thread per ray
-// keeps each ray's running best in registers; a thread block stages one
-// 128-row triangle tile at a time in shared memory (8 KB, float4 loads) and
-// every thread then reads the same row at the same time (a broadcast, no
-// bank conflicts); a tile that no ray of the block needs, because of its
-// AABB, the rays' running best_t or their decided verdicts, is neither
-// loaded nor tested (__syncthreads_or). Rays arrive Morton-sorted, so the
-// rays of one block share the tiles they need.
+// What bounds it on the H100: instruction issue. A pair test is ~40 FP32
+// operations (one IEEE divide among them) on 13 floats of a triangle row
+// that every ray of a thread block shares; device-memory traffic is a few
+// bytes per ray. Built with --fmad=false, every multiply and add is its
+// own instruction, so the SM's issue rate (one warp instruction per clock
+// and scheduler), not the 67 TFLOP/s FMA peak, is the ceiling: the row
+// loop is ~22 instructions per pair for the pre-test and ~86 with the full
+// test (cuobjdump -sass; chip_smoke.py prints the counts). Tensor cores do
+// not serve: each pair needs six affine forms of depth 3 (K = 4 with the
+// offset) and then a divide and compares that depend on them, and the
+// contract is bit-exact FP32, which TF32 or a matrix unit's reordered sums
+// would break.
+//
+// What the design does about it:
+//   1. Four threads per ray. A thread block holds 32 rays x 4 threads; the
+//      4 threads of a ray sit in one warp, each sweeps every 4th row of a
+//      tile with its own running best, and at the tile's end they merge by
+//      warp shuffles. The merge takes the minimum of key = float bits of
+//      best_t << 32 | index (-1 packs as 0xFFFFFFFF): best_t > 0 on a live
+//      ray and positive floats order as their bits, so that minimum is the
+//      tie rule folded over all 128 rows, in any order. Each thread's chain
+//      is a quarter of the tile, with no more pairs executed.
+//   2. The table may be split across thread blocks: the grid is (ray
+//      groups x table slices), so a small batch still fills the 132 SMs
+//      and a batch with few live rays spreads their walks. Each slice
+//      culls with its own running best, so slices add executed pairs;
+//      sweep_slices (ops/intersect.py) takes 8 for closest-hit batches and
+//      for decided batches only as many as keep the card busy, the counts
+//      that ran fastest on whole renders' sweeps on the H100. Slices merge
+//      with one 64-bit atomicMin per ray on the same key. Accepted t >
+//      EPSILON > 0, so the key's minimum is the tie rule; the key array
+//      starts all-ones and a second kernel takes the minimum with the seed
+//      (t_max, 0xFFFFFFFF), so t == t_max still wins with any index, and
+//      maps index 0xFFFFFFFF to -1. Dead rows are never touched. The
+//      minimum is commutative, so the result does not depend on which
+//      slice finishes first.
+//   3. Each group walks the blocks near to far (the order table, made on
+//      the card by closest_hit_order below), so the first wall's best_t
+//      slab-culls the blocks behind it. The table is (groups x nblocks)
+//      int32; past 29,056 blocks its sort keys leave shared memory for a
+//      scratch of twice that size in device memory.
+//   4. A thread block stages one 128-row triangle tile at a time in shared
+//      memory (float4 loads, rows padded to 20 floats so that the 4 rows a
+//      ray's threads read at once fall in distinct banks); a tile that no
+//      ray of the block needs is neither loaded nor tested
+//      (__syncthreads_or). Each thread takes its rows four at a time: their
+//      n.o and n.d forms are independent chains, and the divide and the
+//      rest of the test run only for rows that pass divide_may_accept, an
+//      exact pre-test that never rejects a pair the full test accepts.
+//   5. Executed pair tests (kTile per block a ray takes part in, per slice)
+//      are counted per ray and added with one atomicAdd per ray and slice.
 //
 // Arithmetic is written operation for operation as closest_hit_plain does
-// it and the file is built with --fmad=false (no FMA contraction) and IEEE
-// division, so the kernel's (best_t, best_i) equal the plain version's bit
-// for bit.
+// it, the file is built with --fmad=false (no FMA contraction) and IEEE
+// division, so the kernel's (best_t, best_i) and counters equal the plain
+// version's bit for bit on the same schedule.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 128;     // rays per thread block
+constexpr int kRays = 32;         // rays per thread block (SWEEP_RAYS)
+constexpr int kSplit = 4;         // threads per ray: each takes every 4th row
+constexpr int kThreads = kRays * kSplit;
 constexpr int kTile = 128;        // triangle rows per tile (SWEEP_BLOCK)
 constexpr int kRowFloats = 16;    // packed row width
+// floats per row in shared memory: with 20, the rows that the 4 threads
+// of a ray read at once fall in distinct banks
+constexpr int kStride = 20;
+constexpr int kUnroll = 4;        // rows per thread and step of the row loop
 constexpr float kEps = 1e-4f;     // rayverb_tpu_torch.constants.EPSILON
+constexpr float kSlack = 1.0f + 0x1p-20f;
+// threads of an order thread block: one warp while the sort is short, more
+// for large tables
+constexpr int kOrderThreadsMax = 256;
 
 __device__ __forceinline__ void slab_axis(float o, float dv, float iv,
                                           float lo, float hi, float& tn,
@@ -58,18 +111,44 @@ __device__ __forceinline__ void slab_axis(float o, float dv, float iv,
   tf = b;
 }
 
-__global__ void __launch_bounds__(kThreads)
-closest_hit_kernel(const float* __restrict__ origins,
-                   const float* __restrict__ dirs,
-                   const float* __restrict__ t_max,
-                   const float* __restrict__ t_decide,
-                   const float4* __restrict__ packed,
-                   const float* __restrict__ aabb, int m, int nblocks,
-                   float* __restrict__ best_t_out,
-                   int* __restrict__ best_i_out) {
-  __shared__ float4 tile[kTile * kRowFloats / 4];
+// False only when the full test must reject the pair: t = -ow/dw can be
+// > EPSILON only for nonzero ow and dw of opposite signs (NaN fails, as it
+// fails the full test), and |ow| > best_t*|dw|*(1 + 2^-20) proves
+// fl(-ow/dw) > best_t: the two roundings of the product lose at most
+// 2^-23 relative, so the exact quotient exceeds best_t*(1 + 2^-21), beyond
+// the next float after best_t. That holds while best_t*|dw| is normal,
+// which it is whenever a pair can be accepted (|dw| >= EPSILON and best_t
+// >= t > EPSILON); an infinite or NaN product (best_t = inf) compares
+// false and leaves the pair to the full test. A PyTorch twin of this test
+// is held to that property in tests/test_torch_sweep_schedule.py.
+__device__ __forceinline__ bool divide_may_accept(float ow, float dw,
+                                                  float bt) {
+  const bool opposite = (ow > 0.f && dw < 0.f) || (ow < 0.f && dw > 0.f);
+  const bool beyond = fabsf(ow) > bt * fabsf(dw) * kSlack;
+  return fabsf(dw) >= kEps && opposite && !beyond;
+}
 
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
+__device__ __forceinline__ unsigned long long pack_key(float t, int i) {
+  return ((unsigned long long)__float_as_uint(t) << 32) | (unsigned int)i;
+}
+
+__global__ void __launch_bounds__(kThreads)
+closest_hit_sweep(const float* __restrict__ origins,
+                  const float* __restrict__ dirs,
+                  const float* __restrict__ t_max,
+                  const float* __restrict__ t_decide,
+                  const float4* __restrict__ packed,
+                  const float* __restrict__ aabb,
+                  const int* __restrict__ order, int m, int nblocks,
+                  int slices, unsigned long long* __restrict__ keys,
+                  unsigned long long* __restrict__ executed) {
+  __shared__ float4 tile[kTile * kStride / 4];
+
+  const int group = blockIdx.x;
+  const int slice = blockIdx.y;
+  // lanes 4r .. 4r+3 of a warp hold one ray, each its own rows of a tile
+  const int part = threadIdx.x % kSplit;
+  const int ray = group * kRays + threadIdx.x / kSplit;
   const bool in_range = ray < m;
 
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
@@ -89,8 +168,16 @@ closest_hit_kernel(const float* __restrict__ origins,
   const float ivz = 1.0f / dz;
   const bool live = in_range && (bt > 0.f);
   int bi = -1;
+  unsigned long long count = 0;
 
-  for (int b = 0; b < nblocks; ++b) {
+  // positions [first, end) of this slice in the group's order row (the
+  // plain version's slice_bounds)
+  const int first = slice * nblocks / slices;
+  const int end = (slice + 1) * nblocks / slices;
+  const int* row_order = order + (size_t)group * nblocks;
+
+  for (int p = first; p < end; ++p) {
+    const int b = row_order[p];
     bool need = false;
     if (live && bt >= decide) {
       const float* box = aabb + 8 * b;
@@ -108,58 +195,209 @@ closest_hit_kernel(const float* __restrict__ origins,
 
     const float4* src = packed + (size_t)b * (kTile * kRowFloats / 4);
     for (int i = threadIdx.x; i < kTile * kRowFloats / 4; i += kThreads) {
-      tile[i] = src[i];
+      tile[(i / 4) * (kStride / 4) + i % 4] = src[i];
     }
     __syncthreads();
 
     if (need) {
+      count += kTile;
       const float* rows = reinterpret_cast<const float*>(tile);
-      for (int j = 0; j < kTile; ++j) {
-        const float* r = rows + j * kRowFloats;
-        float ou = r[0] * ox + r[1] * oy + r[2] * oz + r[10];
-        float ov = r[3] * ox + r[4] * oy + r[5] * oz + r[11];
-        float ow = r[6] * ox + r[7] * oy + r[8] * oz + r[12];
-        float du = r[0] * dx + r[1] * dy + r[2] * dz;
-        float dv = r[3] * dx + r[4] * dy + r[5] * dz;
-        float dw = r[6] * dx + r[7] * dy + r[8] * dz;
-        bool degenerate = fabsf(dw) < kEps;
-        float t = -ow / (degenerate ? 1.0f : dw);
-        float u = ou + t * du;
-        float v = ov + t * dv;
-        bool valid = !degenerate && (u >= 0.f) && (u <= 1.f) && (v >= 0.f) &&
-                     (u + v <= 1.f) && (t > kEps);
-        if (valid && t <= bt) {
-          int oi = (int)r[9];
-          if (t < bt || (t < INFINITY && (oi < bi || bi < 0))) {
-            bt = t;
-            bi = oi;
+      for (int j = part; j < kTile; j += kSplit * kUnroll) {
+        float ow[kUnroll], dw[kUnroll];
+        bool maybe[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const float* r = rows + (j + kSplit * k) * kStride;
+          ow[k] = r[6] * ox + r[7] * oy + r[8] * oz + r[12];
+          dw[k] = r[6] * dx + r[7] * dy + r[8] * dz;
+          maybe[k] = divide_may_accept(ow[k], dw[k], bt);
+        }
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          if (!maybe[k]) continue;
+          const float* r = rows + (j + kSplit * k) * kStride;
+          float ou = r[0] * ox + r[1] * oy + r[2] * oz + r[10];
+          float ov = r[3] * ox + r[4] * oy + r[5] * oz + r[11];
+          float du = r[0] * dx + r[1] * dy + r[2] * dz;
+          float dv = r[3] * dx + r[4] * dy + r[5] * dz;
+          // maybe[k] implies |dw| >= EPSILON: not degenerate
+          float t = -ow[k] / dw[k];
+          float u = ou + t * du;
+          float v = ov + t * dv;
+          bool valid = (u >= 0.f) && (u <= 1.f) && (v >= 0.f) &&
+                       (u + v <= 1.f) && (t > kEps);
+          if (valid && t <= bt) {
+            int oi = (int)r[9];
+            if (t < bt || (t < INFINITY && (oi < bi || bi < 0))) {
+              bt = t;
+              bi = oi;
+            }
           }
         }
       }
     }
+    // the ray's 4 threads merge their bests: each began the tile at the
+    // same (bt, bi) and folded its rows by the tie rule, so the minimum
+    // key over the 4 is the fold over all 128 rows (bi = -1 packs last)
+    unsigned long long key = pack_key(bt, bi);
+    key = min(key, __shfl_xor_sync(0xFFFFFFFFu, key, 1));
+    key = min(key, __shfl_xor_sync(0xFFFFFFFFu, key, 2));
+    bt = __uint_as_float((unsigned int)(key >> 32));
+    bi = (int)(unsigned int)key;
   }
-  if (in_range) {
-    best_t_out[ray] = bt;
-    best_i_out[ray] = bi;
+  if (part != 0) return;
+  if (bi >= 0) atomicMin(keys + ray, pack_key(bt, bi));
+  if (executed != nullptr && count != 0) {
+    atomicAdd(executed + ray, count);
+  }
+}
+
+// (best_t, best_i) from the merged key and the seed (t_max, 0xFFFFFFFF).
+__global__ void closest_hit_unpack(const unsigned long long* __restrict__ keys,
+                                   const float* __restrict__ t_max, int m,
+                                   float* __restrict__ best_t,
+                                   int* __restrict__ best_i) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const unsigned long long seed =
+      ((unsigned long long)__float_as_uint(t_max[i]) << 32) | 0xFFFFFFFFull;
+  const unsigned long long key = min(keys[i], seed);
+  const unsigned int lo = (unsigned int)key;
+  best_t[i] = __uint_as_float((unsigned int)(key >> 32));
+  best_i[i] = lo == 0xFFFFFFFFu ? -1 : (int)lo;
+}
+
+// One thread block per group of kRays rays: the group's order row. The
+// group's first live ray (t_max > 0; the first row of a dead group) ranks
+// every block by where its line enters the block's AABB (0 from inside,
+// +inf when it misses), key = rank bits * nblocks + block index, and a
+// bitonic sort of the keys gives the row: in shared memory, or, for a
+// table whose keys do not fit there, in the group's row of `spill` in
+// device memory. Written operation for operation as
+// intersect.py::block_order, its plain version. nblocks is a power of two
+// (build_sweep_table rounds it up to one); blockDim.x a multiple of kRays.
+__global__ void __launch_bounds__(kOrderThreadsMax)
+closest_hit_order(const float* __restrict__ origins,
+                  const float* __restrict__ dirs,
+                  const float* __restrict__ t_max,
+                  const float* __restrict__ aabb, int m, int nblocks,
+                  int* __restrict__ order, long long* spill) {
+  extern __shared__ long long shared_keys[];
+  __shared__ int first;
+  const int group = blockIdx.x;
+  long long* keys =
+      spill != nullptr ? spill + (size_t)group * nblocks : shared_keys;
+  if (threadIdx.x == 0) first = kRays;
+  __syncthreads();
+  const int ray = group * kRays + threadIdx.x;
+  if (threadIdx.x < kRays && ray < m && t_max[ray] > 0.f) {
+    atomicMin(&first, (int)threadIdx.x);
+  }
+  __syncthreads();
+  const int rep = min(group * kRays + (first == kRays ? 0 : first), m - 1);
+  const float ox = origins[3 * rep + 0];
+  const float oy = origins[3 * rep + 1];
+  const float oz = origins[3 * rep + 2];
+  const float dx = dirs[3 * rep + 0];
+  const float dy = dirs[3 * rep + 1];
+  const float dz = dirs[3 * rep + 2];
+  const float ivx = 1.0f / dx;
+  const float ivy = 1.0f / dy;
+  const float ivz = 1.0f / dz;
+  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
+    const float* box = aabb + 8 * b;
+    float tnx, tfx, tny, tfy, tnz, tfz;
+    slab_axis(ox, dx, ivx, box[0], box[3], tnx, tfx);
+    slab_axis(oy, dy, ivy, box[1], box[4], tny, tfy);
+    slab_axis(oz, dz, ivz, box[2], box[5], tnz, tfz);
+    const float tn = fmaxf(fmaxf(tnx, tny), tnz);
+    const float tf = fminf(fminf(tfx, tfy), tfz);
+    const float rank = (tf >= fmaxf(tn, kEps)) ? fmaxf(tn, 0.f) : INFINITY;
+    // non-negative float bits order as the floats do (& clears -0.0's sign)
+    const int bits = __float_as_int(rank) & 0x7FFFFFFF;
+    keys[b] = (long long)bits * nblocks + b;
+  }
+  __syncthreads();
+  for (int k = 2; k <= nblocks; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < nblocks; i += blockDim.x) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const long long a = keys[i];
+          const long long c = keys[ixj];
+          if ((a > c) == ((i & k) == 0)) {
+            keys[i] = c;
+            keys[ixj] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  int* row = order + (size_t)group * nblocks;
+  for (int i = threadIdx.x; i < nblocks; i += blockDim.x) {
+    row[i] = (int)(keys[i] % nblocks);
   }
 }
 
 }  // namespace
 
-// C interface for ctypes. All pointers are device pointers of contiguous
-// float32 (int32 for best_i) arrays: origins and dirs (m, 3), t_max and
-// t_decide (m,), packed (nblocks * 128, 16), aabb (nblocks, 8), outputs
-// (m,). Launches on `stream` and returns cudaGetLastError() of the launch.
-extern "C" int rv_closest_hit(const void* origins, const void* dirs,
-                              const void* t_max, const void* t_decide,
-                              const void* packed, const void* aabb, int m,
-                              int nblocks, void* best_t, void* best_i,
+// C interface for ctypes: the near-to-far block order of each group of 32
+// rays (closest_hit_order). origins and dirs (m, 3), t_max (m,), aabb
+// (nblocks, 8) float32, order (ceil(m / 32), nblocks) int32; nblocks a
+// power of two. spill is null, and the keys are sorted in shared memory,
+// or (ceil(m / 32), nblocks) 64-bit scratch in device memory for tables
+// whose keys do not fit there. Enqueues on `stream` and returns the first
+// CUDA error of the enqueue (0 if none).
+extern "C" int rv_block_order(const void* origins, const void* dirs,
+                              const void* t_max, const void* aabb, int m,
+                              int nblocks, void* order, void* spill,
                               void* stream) {
   if (m <= 0) return 0;
-  dim3 grid((m + kThreads - 1) / kThreads);
-  closest_hit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const size_t smem =
+      spill != nullptr ? 0 : sizeof(long long) * (size_t)nblocks;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        closest_hit_order, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int threads = nblocks <= 256 ? kRays : kOrderThreadsMax;
+  closest_hit_order<<<(m + kRays - 1) / kRays, threads, smem,
+                      (cudaStream_t)stream>>>(
       (const float*)origins, (const float*)dirs, (const float*)t_max,
-      (const float*)t_decide, (const float4*)packed, (const float*)aabb, m,
-      nblocks, (float*)best_t, (int*)best_i);
+      (const float*)aabb, m, nblocks, (int*)order, (long long*)spill);
+  return (int)cudaGetLastError();
+}
+
+// C interface for ctypes. All pointers are device pointers of contiguous
+// arrays: origins and dirs (m, 3) float32, t_max and t_decide (m,)
+// float32, packed (nblocks * 128, 16) float32, aabb (nblocks, 8) float32,
+// order (ceil(m / 32), nblocks) int32, keys (m,) 64-bit scratch, executed
+// (m,) int64 added to (or null: no counters), best_t (m,) float32 and
+// best_i (m,) int32. Enqueues on `stream` and returns the first CUDA
+// error of the enqueue (0 if none).
+extern "C" int rv_closest_hit(const void* origins, const void* dirs,
+                              const void* t_max, const void* t_decide,
+                              const void* packed, const void* aabb,
+                              const void* order, int m, int nblocks,
+                              int slices, void* keys, void* executed,
+                              void* best_t, void* best_i, void* stream) {
+  if (m <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(keys, 0xFF,
+                                    sizeof(unsigned long long) * (size_t)m, s);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((m + kRays - 1) / kRays, slices);
+  closest_hit_sweep<<<grid, kThreads, 0, s>>>(
+      (const float*)origins, (const float*)dirs, (const float*)t_max,
+      (const float*)t_decide, (const float4*)packed, (const float*)aabb,
+      (const int*)order, m, nblocks, slices, (unsigned long long*)keys,
+      (unsigned long long*)executed);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  closest_hit_unpack<<<(m + 255) / 256, 256, 0, s>>>(
+      (const unsigned long long*)keys, (const float*)t_max, m, (float*)best_t,
+      (int*)best_i);
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict = {}
-# name -> {"seconds": build wall (0.0 when reused), "log": nvcc's output}
+# name -> {"seconds": build wall (0.0 when reused), "log": nvcc's output,
+#          "path": the loaded library}
 build_info: dict = {}
 
 
@@ -97,6 +98,8 @@ def load_library(name: str, sources) -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed building {name}:\n{log}")
             os.replace(tmp, out)  # atomic: no half-written library is seen
         lib = ctypes.CDLL(out)
-        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        build_info[name] = {
+            "seconds": time.perf_counter() - t0, "log": log, "path": out,
+        }
         _libs[name] = lib
         return lib

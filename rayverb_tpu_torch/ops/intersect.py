@@ -20,10 +20,17 @@ Contract (that of rayverb_tpu/ops/intersect_pallas.py::_kernel):
   - per ray and per triangle block, an AABB slab test against the running
     ``best_t`` skips blocks that cannot improve the ray (conservative)
 
-Both implementations walk the triangle blocks in table order and decide,
-per ray and at each block's entry, whether the block runs. Their arithmetic
-is the same operation for operation, so on the same inputs they return the
-same bits (the kernel is built without FMA contraction).
+Both implementations follow one schedule, computed once per sweep by
+``sweep_schedule``: each group of SWEEP_RAYS rays walks the blocks in its
+own near-to-far order (``block_order``), cut into S contiguous slices
+(``sweep_slices``) that run independently, each with its own running best;
+the slices' results merge by the minimum of a 64-bit key (``pack_keys``).
+Closest-hit rows (``t_decide = 0``) do not depend on the schedule; decided
+rows may return another witness blocker, never another verdict. Per ray,
+slice and block both decide at the block's entry whether it runs, and their
+arithmetic is the same operation for operation, so on the same inputs and
+schedule they return the same bits and executed-pair counts (the kernel is
+built without FMA contraction).
 """
 
 from __future__ import annotations
@@ -40,7 +47,21 @@ from ..utils.directions import _morton3
 # default RAYVERB_SWEEP_BLOCK). The CUDA kernel stages one block per step.
 SWEEP_BLOCK = 128
 
-# Rays per plain-sweep chunk: bounds the (rays, SWEEP_BLOCK) planes.
+# Rays per group of the block order; one CUDA thread block (4 threads per
+# ray) sweeps one group against one table slice.
+SWEEP_RAYS = 32
+
+# Table slices of a sweep (sweep_slices), set from whole renders' sweeps
+# timed on the H100 at 1-16 slices (rayverb_tpu_torch.sweep_scan; PERF.md,
+# Findings): closest-hit batches ran fastest at about 8 slices at every
+# ray count and scene measured; for decided batches (any-hit rows) each
+# slice decides on its own best, and more slices cost more executed pairs
+# than they save, unless the groups alone leave most of the card idle.
+CLOSEST_SLICES = 8
+DECIDED_TARGET_CTAS = 132 * 4
+
+# rays per plain-sweep chunk (PLAIN_RAY_CHUNK / SWEEP_RAYS groups, each
+# with one gathered block): bounds the (rays, SWEEP_BLOCK) planes.
 PLAIN_RAY_CHUNK = 1 << 15
 
 _BIG_I32 = 0x7FFFFFFF
@@ -246,34 +267,43 @@ def intersect_triangle(origins, dirs, tri_verts):
     return torch.where(valid, t, 0.0)
 
 
-def _slab_pass(origins, dirs, inv, box, best_t):
-    """(M,) bool: the ray's segment [max(tn, EPSILON), min(tf, best_t)] meets
-    the block AABB ``box`` (8,). The kernel's slab test, op for op."""
+def _slab(origins, dirs, inv, box):
+    """(tn, tf): entry and exit of the rays' lines through the AABB ``box``
+    (..., 8), which broadcasts against the rays' columns ``origins[..., a]``.
+    The kernel's slab test, op for op."""
     tn = tf = None
     for a in range(3):
-        o = origins[:, a]
-        lo = box[a]
-        hi = box[3 + a]
-        near = (lo - o) * inv[:, a]
-        far = (hi - o) * inv[:, a]
+        o = origins[..., a]
+        lo = box[..., a]
+        hi = box[..., 3 + a]
+        near = (lo - o) * inv[..., a]
+        far = (hi - o) * inv[..., a]
         tna = torch.minimum(near, far)
         tfa = torch.maximum(near, far)
-        zero = torch.abs(dirs[:, a]) < 1e-30
+        zero = torch.abs(dirs[..., a]) < 1e-30
         inside = (o >= lo) & (o <= hi)
         inf = torch.full_like(tna, float("inf"))
         tna = torch.where(zero, torch.where(inside, -inf, inf), tna)
         tfa = torch.where(zero, torch.where(inside, inf, -inf), tfa)
         tn = tna if tn is None else torch.maximum(tn, tna)
         tf = tfa if tf is None else torch.minimum(tf, tfa)
+    return tn, tf
+
+
+def _slab_pass(origins, dirs, inv, box, best_t):
+    """Bool mask: the ray's segment [max(tn, EPSILON), min(tf, best_t)]
+    meets the block AABB ``box`` (one box, or one per (slice, ray) pair)."""
+    tn, tf = _slab(origins, dirs, inv, box)
     return (tf >= torch.clamp(tn, min=EPSILON)) & (tn <= best_t)
 
 
-def _tile_min(o, d, tile):
-    """Closest valid hit of rays (k, 3) against one block's packed rows
-    (B, 16): returns ((k,) t_min, (k,) lowest original index at t_min)."""
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    r = tile.T[:, None, :]  # (16, 1, B)
+def _tile_min(o, d, tiles):
+    """Closest valid hit of the rays (k, R, 3) of k groups, each group
+    against its own block of packed rows (k, B, 16): returns ((k, R) t_min,
+    (k, R) lowest original index at t_min)."""
+    ox, oy, oz = o[..., 0:1], o[..., 1:2], o[..., 2:3]
+    dx, dy, dz = d[..., 0:1], d[..., 1:2], d[..., 2:3]
+    r = tiles.permute(2, 0, 1)[:, :, None, :]  # (16, k, 1, B)
     ou = r[0] * ox + r[1] * oy + r[2] * oz + r[10]
     ov = r[3] * ox + r[4] * oy + r[5] * oz + r[11]
     ow = r[6] * ox + r[7] * oy + r[8] * oz + r[12]
@@ -291,67 +321,205 @@ def _tile_min(o, d, tile):
         & (t > EPSILON)
     )
     t = torch.where(valid, t, float("inf"))
-    tmin = torch.amin(t, dim=1)
+    tmin = torch.amin(t, dim=-1)
     oidx = r[9].to(torch.int32)
     cand = torch.amin(
-        torch.where(t <= tmin[:, None], oidx, _BIG_I32), dim=1
+        torch.where(t <= tmin[..., None], oidx, _BIG_I32), dim=-1
     )
     return tmin, cand
 
 
+def sweep_slices(m: int, nblocks: int, decided: bool = False) -> int:
+    """Table slices S of a sweep of ``m`` rays over ``nblocks`` blocks:
+    CLOSEST_SLICES for closest-hit batches; for decided batches (t_decide
+    given) as many as it takes for (ray groups x S) thread blocks to reach
+    DECIDED_TARGET_CTAS. At most nblocks // 2, so that every slice holds
+    at least two blocks and can cull the later ones by its own best."""
+    groups = max(1, -(-m // SWEEP_RAYS))
+    want = -(-DECIDED_TARGET_CTAS // groups) if decided else CLOSEST_SLICES
+    return max(1, min(want, nblocks // 2))
+
+
+def table_order(m: int, nblocks: int, device) -> torch.Tensor:
+    """(groups, nblocks) int32: every group walks the blocks in table
+    order."""
+    groups = -(-m // SWEEP_RAYS)
+    return (
+        torch.arange(nblocks, dtype=torch.int32, device=device)
+        .expand(groups, nblocks)
+        .contiguous()
+    )
+
+
+def block_order(origins, dirs, t_max, block_aabb) -> torch.Tensor:
+    """(groups, nblocks) int32 near-to-far block order of each group of
+    SWEEP_RAYS consecutive rays.
+
+    The group's first live ray (t_max > 0; the first row of a dead group)
+    ranks each block by where its line enters the block's AABB (0 from
+    inside); blocks it does not meet come last. Ties go to the lower block
+    index. Only elementwise IEEE operations and an integer sort are used,
+    so every device computes the same table from the same inputs."""
+    m = origins.shape[0]
+    nb = block_aabb.shape[0]
+    groups = -(-m // SWEEP_RAYS)
+    dev = origins.device
+    live = torch.zeros((groups * SWEEP_RAYS,), dtype=torch.uint8, device=dev)
+    live[:m] = t_max > 0
+    first = torch.argmax(live.view(groups, SWEEP_RAYS), dim=1)
+    rep = torch.clamp(
+        torch.arange(groups, device=dev) * SWEEP_RAYS + first, max=max(m - 1, 0)
+    )
+    o = origins[rep][:, None, :]
+    d = dirs[rep][:, None, :]
+    tn, tf = _slab(o, d, 1.0 / d, block_aabb)  # (groups, nb)
+    meets = tf >= torch.clamp(tn, min=EPSILON)
+    rank = torch.where(meets, torch.clamp(tn, min=0.0), float("inf"))
+    # non-negative float bits order as the floats do (& clears -0.0's sign)
+    bits = rank.view(torch.int32) & 0x7FFFFFFF
+    key = bits.to(torch.int64) * nb + torch.arange(nb, device=dev)
+    return torch.argsort(key, dim=1).to(torch.int32)
+
+
+def sweep_schedule(origins, dirs, t_max, block_aabb, decided=False):
+    """(order, slices) of a sweep: block_order (for CUDA tensors its kernel,
+    intersect_cuda.block_order_cuda, in one launch) and sweep_slices. The
+    dispatcher computes it once and hands it to whichever version runs."""
+    if origins.is_cuda:
+        from .intersect_cuda import block_order_cuda as order_fn
+    else:
+        order_fn = block_order
+    return (
+        order_fn(origins, dirs, t_max, block_aabb),
+        sweep_slices(origins.shape[0], block_aabb.shape[0], decided),
+    )
+
+
+def slice_bounds(nblocks: int, slices: int):
+    """[(first, end)) positions of each slice in a group's order row."""
+    return [
+        (s * nblocks // slices, (s + 1) * nblocks // slices)
+        for s in range(slices)
+    ]
+
+
+_I32_MIN = -(1 << 31)
+
+
+def pack_keys(best_t, best_i):
+    """Merge keys of (t, index) results: the CUDA kernel's 64-bit key
+    (float bits of t << 32 | index as uint32, -1 as 0xFFFFFFFF), shifted
+    by -2^63 so that int64 order is the uint64 order. For t > 0 the key
+    order is the tie rule: smallest t, then lowest index, with -1 last."""
+    hi = (best_t.contiguous().view(torch.int32) ^ _I32_MIN).to(torch.int64)
+    lo = best_i.to(torch.int64) & 0xFFFFFFFF
+    return hi * (1 << 32) + lo
+
+
+def unpack_keys(key):
+    """Inverse of pack_keys: (t float32, index int32, 0xFFFFFFFF -> -1)."""
+    hi = (key >> 32).to(torch.int32) ^ _I32_MIN
+    lo = key & 0xFFFFFFFF
+    idx = torch.where(lo == 0xFFFFFFFF, -1, lo).to(torch.int32)
+    return hi.view(torch.float32), idx
+
+
+def check_schedule(order, slices, m, nblocks):
+    """Raise ValueError unless (order, slices) is a schedule for ``m`` rays
+    over ``nblocks`` blocks."""
+    groups = -(-m // SWEEP_RAYS)
+    if tuple(order.shape) != (groups, nblocks) or order.dtype != torch.int32:
+        raise ValueError(
+            f"order must be int32 of shape {(groups, nblocks)}, got "
+            f"{order.dtype} {tuple(order.shape)}"
+        )
+    if not 1 <= slices <= max(nblocks, 1):
+        raise ValueError(f"slices must lie in [1, {nblocks}], got {slices}")
+
+
 def closest_hit_plain(
-    origins, dirs, packed, block_aabb, t_max, t_decide, *, with_stats=False
+    origins, dirs, packed, block_aabb, t_max, t_decide, order, slices, *,
+    with_stats=False,
 ):
     """The kernel's plain version: raw (best_t (M,) f32, best_i (M,) i32,
     -1 = none) for rays (M, 3) against the packed table, with per-ray
-    bounds ``t_max`` and any-hit thresholds ``t_decide`` (M,) f32.
+    bounds ``t_max`` and any-hit thresholds ``t_decide`` (M,) f32, on the
+    schedule (``order``, ``slices``) of sweep_schedule.
 
-    Blocks run in table order; at each block's entry a ray takes part when
-    its bound is positive, it is undecided (``best_t >= t_decide``) and it
-    passes the slab test against its running ``best_t``. Participating rays
-    are gathered and swept in chunks of PLAIN_RAY_CHUNK.
+    Each group of SWEEP_RAYS rays walks its row of ``order``, cut into
+    ``slices`` contiguous runs (slice_bounds); every slice keeps its own
+    running best, seeded from t_max. At each block's entry a ray takes part
+    in the block when its bound is positive, it is undecided in that slice
+    (``best_t >= t_decide``) and it passes the slab test against the
+    slice's running ``best_t``. The slices' results are merged by the
+    minimum of their pack_keys. The slices run position by position, all
+    at once; the (slice, group) pairs in which some ray takes part are
+    swept in chunks, each group's rays against the one block they share.
 
     with_stats=True also returns (M,) int64 executed pair tests per ray
-    (SWEEP_BLOCK per block the ray took part in)."""
+    (SWEEP_BLOCK per block and slice the ray took part in)."""
     m = origins.shape[0]
     nb = block_aabb.shape[0]
     blk = packed.shape[0] // nb
-    best_t = t_max.to(torch.float32).clone()
-    best_i = torch.full((m,), -1, dtype=torch.int32, device=origins.device)
-    executed = (
-        torch.zeros((m,), dtype=torch.int64, device=origins.device)
-        if with_stats
-        else None
-    )
-    inv = 1.0 / dirs
+    dev = origins.device
+    check_schedule(order, slices, m, nb)
+    groups = order.shape[0]
+    pad = groups * SWEEP_RAYS - m
+
+    def by_group(x, fill):
+        # (groups, SWEEP_RAYS, ...); the padding rows are dead (t_max = 0)
+        x = torch.cat([x, x.new_full((pad, *x.shape[1:]), fill)])
+        return x.view(groups, SWEEP_RAYS, *x.shape[1:])
+
+    o = by_group(origins, 0.0)
+    d = by_group(dirs, 1.0)
+    t_max = by_group(t_max.to(torch.float32), 0.0)
+    t_decide = by_group(t_decide, 0.0)
+    tiles = packed.view(nb, blk, 16)
+    best_t = t_max[None].repeat(slices, 1, 1)  # (S, groups, SWEEP_RAYS)
+    best_i = torch.full(best_t.shape, -1, dtype=torch.int32, device=dev)
+    executed = torch.zeros(t_max.shape, dtype=torch.int64, device=dev)
+    inv = 1.0 / d
     live = t_max > 0
-    for b in range(nb):
+    order = order.long()
+    bounds = slice_bounds(nb, slices)
+    chunk = max(1, PLAIN_RAY_CHUNK // SWEEP_RAYS)
+    for p in range(max(e - b for b, e in bounds)):
+        sl = [s for s, (b, e) in enumerate(bounds) if b + p < e]
+        cols = torch.tensor([bounds[s][0] + p for s in sl], device=dev)
+        sl = torch.tensor(sl, device=dev)
+        blocks = order[:, cols].T  # (S', groups)
+        bt = best_t[sl]
         active = (
             live
-            & (best_t >= t_decide)
-            & _slab_pass(origins, dirs, inv, block_aabb[b], best_t)
-        )
-        rows = torch.nonzero(active).squeeze(1)
-        if rows.numel() == 0:
-            continue
-        if executed is not None:
-            executed[rows] += blk
-        tile = packed[b * blk : (b + 1) * blk]
-        for c0 in range(0, rows.numel(), PLAIN_RAY_CHUNK):
-            r = rows[c0 : c0 + PLAIN_RAY_CHUNK]
-            tmin, cand = _tile_min(origins[r], dirs[r], tile)
-            bt = best_t[r]
-            bi = best_i[r]
-            better = (tmin < bt) | (
-                (tmin == bt)
-                & torch.isfinite(tmin)
-                & ((cand < bi) | (bi < 0))
+            & (bt >= t_decide)
+            & _slab_pass(o, d, inv, block_aabb[blocks][:, :, None, :], bt)
+        )  # (S', groups, SWEEP_RAYS)
+        if with_stats:
+            executed += blk * active.sum(dim=0)
+        ks, gs = torch.nonzero(active.any(dim=-1), as_tuple=True)
+        for c0 in range(0, gs.numel(), chunk):
+            k = ks[c0 : c0 + chunk]
+            g = gs[c0 : c0 + chunk]
+            tmin, cand = _tile_min(o[g], d[g], tiles[blocks[k, g]])
+            s = sl[k]
+            bt_f = best_t[s, g]
+            bi_f = best_i[s, g]
+            better = active[k, g] & (
+                (tmin < bt_f)
+                | (
+                    (tmin == bt_f)
+                    & torch.isfinite(tmin)
+                    & ((cand < bi_f) | (bi_f < 0))
+                )
             )
-            best_t[r] = torch.where(better, tmin, bt)
-            best_i[r] = torch.where(better, cand, bi)
+            best_t[s, g] = torch.where(better, tmin, bt_f)
+            best_i[s, g] = torch.where(better, cand, bi_f)
+    keys = pack_keys(best_t.view(slices, -1), best_i.view(slices, -1))
+    out_t, out_i = unpack_keys(torch.amin(keys[:, :m], dim=0))
     if with_stats:
-        return best_t, best_i, executed
-    return best_t, best_i
+        return out_t, out_i, executed.view(-1)[:m]
+    return out_t, out_i
 
 
 def _bounds(m, t_max, t_decide, device):
@@ -386,44 +554,40 @@ def closest_hit(
     stops refining, so its (t, index) may be a witness blocker rather than
     the closest; pass it only for rows whose consumer reads the verdict.
 
-    with_stats=True (plain version only) returns (Hit, executed pair tests
-    per ray); the kernel's counters are not ported yet."""
+    with_stats=True returns (Hit, executed pair tests per ray)."""
     if impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"impl must be 'auto', 'cuda' or 'plain', not {impl!r}")
     origins = origins.to(torch.float32).contiguous()
     dirs = dirs.to(torch.float32).contiguous()
+    decided = t_decide is not None
     t_max, t_decide = _bounds(origins.shape[0], t_max, t_decide, origins.device)
     use_kernel = impl == "cuda" or (impl == "auto" and origins.is_cuda)
-    executed = None
     if use_kernel:
-        if with_stats:
-            raise NotImplementedError(
-                "the CUDA sweep's executed-pair counters are not ported yet"
-            )
-        from .intersect_cuda import closest_hit_cuda
-
-        best_t, best_i = closest_hit_cuda(
-            origins, dirs, soup.packed, soup.block_aabb, t_max, t_decide
-        )
+        from .intersect_cuda import closest_hit_cuda as sweep
     else:
-        out = closest_hit_plain(
-            origins,
-            dirs,
-            soup.packed,
-            soup.block_aabb,
-            t_max,
-            t_decide,
-            with_stats=with_stats,
-        )
-        best_t, best_i = out[0], out[1]
-        executed = out[2] if with_stats else None
+        sweep = closest_hit_plain
+    order, slices = sweep_schedule(
+        origins, dirs, t_max, soup.block_aabb, decided
+    )
+    out = sweep(
+        origins,
+        dirs,
+        soup.packed,
+        soup.block_aabb,
+        t_max,
+        t_decide,
+        order,
+        slices,
+        with_stats=with_stats,
+    )
+    best_t, best_i = out[0], out[1]
     found = best_i >= 0
     hit = Hit(
         t=torch.where(found, best_t, float("inf")),
         index=torch.clamp(best_i, min=0).to(torch.int64),
         hit=found,
     )
-    return (hit, executed) if with_stats else hit
+    return (hit, out[2]) if with_stats else hit
 
 
 def visible(begin, point, soup: TriangleSoup, *, impl: str = "auto"):

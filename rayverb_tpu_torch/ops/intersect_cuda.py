@@ -1,11 +1,12 @@
-"""Wrapper of the hand-written CUDA closest-hit kernel
-(csrc/closest_hit.cu), which replaces the TPU kernel
-rayverb_tpu/ops/intersect_pallas.py::_kernel.
+"""Wrappers of the hand-written CUDA closest-hit kernels
+(csrc/closest_hit.cu), which replace the TPU kernel
+rayverb_tpu/ops/intersect_pallas.py::_kernel and the block order that its
+wrapper computes (intersect_pallas.py:604-646).
 
 The kernel is built with nvcc at first use (cuda_build) and called through
 its C interface with ctypes. This module imports without nvcc or a GPU;
-nothing is built until the first launch. The plain version of the kernel is
-intersect.closest_hit_plain.
+nothing is built until the first launch. The plain versions of the kernels
+are intersect.closest_hit_plain and intersect.block_order.
 """
 
 from __future__ import annotations
@@ -14,25 +15,33 @@ import ctypes
 
 import torch
 
-# kernel launches since import (or since the caller last reset it); the
-# wrapper adds one per launch and nowhere else
+# launches since import (or since the caller last reset them) of the
+# sweep kernel and of the block-order kernel; each wrapper adds one per
+# launch and nowhere else
 launches = 0
+order_launches = 0
 
 _fn = None
 
 
 def _kernel():
+    """(rv_closest_hit, rv_block_order) of the built library."""
     global _fn
     if _fn is None:
         from ..cuda_build import load_library
 
         lib = load_library("closest_hit", ["closest_hit.cu"])
-        fn = lib.rv_closest_hit
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+        sweep = lib.rv_closest_hit
+        sweep.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p
+        ] * 5
+        sweep.restype = ctypes.c_int
+        order = lib.rv_block_order
+        order.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
             ctypes.c_void_p
         ] * 3
-        fn.restype = ctypes.c_int
-        _fn = fn
+        order.restype = ctypes.c_int
+        _fn = (sweep, order)
     return _fn
 
 
@@ -53,11 +62,74 @@ def _check(name, x, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def closest_hit_cuda(origins, dirs, packed, block_aabb, t_max, t_decide):
-    """Raw (best_t (M,) float32, best_i (M,) int32, -1 = none): the same
-    contract and arguments as intersect.closest_hit_plain, computed by the
-    CUDA kernel on the current stream. Every tensor must be a contiguous
-    float32 CUDA tensor on one device; anything else raises."""
+# the block-order kernel sorts a group's int64 keys in shared memory up to
+# this many blocks (the 227 KB a thread block may use on Hopper), and in a
+# device-memory scratch of (groups, nblocks) keys beyond it
+MAX_SHARED_ORDER_BLOCKS = 227 * 1024 // 8
+
+
+def block_order_cuda(origins, dirs, t_max, block_aabb):
+    """(groups, nblocks) int32 near-to-far block order of each group of
+    SWEEP_RAYS rays: intersect.block_order, computed by the CUDA kernel
+    closest_hit_order in one launch on the current stream. The table's
+    block count must be a power of two (build_sweep_table's); the tensors
+    contiguous float32 on one CUDA device."""
+    global order_launches
+    if not origins.is_cuda:
+        raise ValueError(
+            "block_order_cuda needs CUDA tensors; CPU tensors go to "
+            "intersect.block_order"
+        )
+    from .intersect import SWEEP_RAYS
+
+    dev = origins.device
+    m = origins.shape[0]
+    nb = block_aabb.shape[0]
+    _check("origins", origins, (m, 3), torch.float32, dev)
+    _check("dirs", dirs, (m, 3), torch.float32, dev)
+    _check("t_max", t_max, (m,), torch.float32, dev)
+    _check("block_aabb", block_aabb, (nb, 8), torch.float32, dev)
+    if nb <= 0 or nb & (nb - 1):
+        raise ValueError(f"block count must be a power of two, got {nb}")
+    groups = -(-m // SWEEP_RAYS)
+    order = torch.empty((groups, nb), dtype=torch.int32, device=dev)
+    if m == 0:
+        return order
+    spill = (
+        torch.empty((groups, nb), dtype=torch.int64, device=dev)
+        if nb > MAX_SHARED_ORDER_BLOCKS
+        else None
+    )
+    _, fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            origins.data_ptr(),
+            dirs.data_ptr(),
+            t_max.data_ptr(),
+            block_aabb.data_ptr(),
+            m,
+            nb,
+            order.data_ptr(),
+            None if spill is None else spill.data_ptr(),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"block order kernel launch failed: CUDA error {err}")
+    order_launches += 1
+    return order
+
+
+def closest_hit_cuda(
+    origins, dirs, packed, block_aabb, t_max, t_decide, order, slices, *,
+    with_stats=False,
+):
+    """Raw (best_t (M,) float32, best_i (M,) int32, -1 = none), and with
+    with_stats=True the (M,) int64 executed pair tests per ray: the same
+    contract, arguments and schedule as intersect.closest_hit_plain,
+    computed by the CUDA kernel on the current stream. Every tensor must be
+    a contiguous CUDA tensor on one device (float32; ``order`` int32);
+    anything else raises."""
     global launches
     if not origins.is_cuda:
         raise ValueError(
@@ -67,7 +139,7 @@ def closest_hit_cuda(origins, dirs, packed, block_aabb, t_max, t_decide):
     dev = origins.device
     m = origins.shape[0]
     nb = block_aabb.shape[0]
-    from .intersect import SWEEP_BLOCK
+    from .intersect import SWEEP_BLOCK, check_schedule
 
     _check("origins", origins, (m, 3), torch.float32, dev)
     _check("dirs", dirs, (m, 3), torch.float32, dev)
@@ -75,29 +147,40 @@ def closest_hit_cuda(origins, dirs, packed, block_aabb, t_max, t_decide):
     _check("t_decide", t_decide, (m,), torch.float32, dev)
     _check("packed", packed, (nb * SWEEP_BLOCK, 16), torch.float32, dev)
     _check("block_aabb", block_aabb, (nb, 8), torch.float32, dev)
+    check_schedule(order, slices, m, nb)
+    _check("order", order, order.shape, torch.int32, dev)
     if packed.data_ptr() % 16:
         raise ValueError("packed must be 16-byte aligned (the kernel reads float4)")
     best_t = torch.empty((m,), dtype=torch.float32, device=dev)
     best_i = torch.empty((m,), dtype=torch.int32, device=dev)
-    if m == 0:
-        return best_t, best_i
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            origins.data_ptr(),
-            dirs.data_ptr(),
-            t_max.data_ptr(),
-            t_decide.data_ptr(),
-            packed.data_ptr(),
-            block_aabb.data_ptr(),
-            m,
-            nb,
-            best_t.data_ptr(),
-            best_i.data_ptr(),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"closest_hit kernel launch failed: CUDA error {err}")
-    launches += 1
+    executed = (
+        torch.zeros((m,), dtype=torch.int64, device=dev) if with_stats else None
+    )
+    if m > 0:
+        keys = torch.empty((m,), dtype=torch.int64, device=dev)
+        fn, _ = _kernel()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(
+                origins.data_ptr(),
+                dirs.data_ptr(),
+                t_max.data_ptr(),
+                t_decide.data_ptr(),
+                packed.data_ptr(),
+                block_aabb.data_ptr(),
+                order.data_ptr(),
+                m,
+                nb,
+                slices,
+                keys.data_ptr(),
+                executed.data_ptr() if with_stats else None,
+                best_t.data_ptr(),
+                best_i.data_ptr(),
+                stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"closest_hit kernel launch failed: CUDA error {err}")
+        launches += 1
+    if with_stats:
+        return best_t, best_i, executed
     return best_t, best_i

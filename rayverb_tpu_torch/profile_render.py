@@ -5,14 +5,18 @@
 Renders the scene once to warm up, then once more under torch.profiler
 (CPU and CUDA activities), and prints one JSON object: the render's wall,
 device kernel time in total and by kernel (top 12), the closest-hit
-kernel's launches and time, and the device's busy share (union of kernel
-intervals over the wall). Defaults to the vault demo. Needs a CUDA device.
+kernels' launches and time, and the device's busy share (union of kernel
+intervals over the wall). It also prints the host's cost of one sweep
+(host_cost): microseconds of host time per call of intersect.closest_hit
+and of its parts, on a batch so small that the device keeps up. Defaults
+to the vault demo. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import time
 
@@ -42,6 +46,7 @@ def profile(paths=VAULT, impl: str = "auto") -> dict:
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from .config.schema import load_config
+    from .ops.intersect import soup_from_scene
     from .ops.render import render_fused
     from .scene import load_scene
     from .utils.directions import random_directions
@@ -51,11 +56,13 @@ def profile(paths=VAULT, impl: str = "auto") -> dict:
     cfg = load_config(paths[0])
     scene = load_scene(paths[1], paths[2])
     dirs = random_directions(cfg.rays, seed=cfg.seed)
-    render_fused(scene, cfg, dirs, impl=impl, device="cuda")
+    soup = soup_from_scene(scene, device="cuda")
+    render_fused(scene, cfg, dirs, impl=impl, device="cuda", soup=soup)
     torch.cuda.synchronize()
+    host_us = host_cost(soup)
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_fused(scene, cfg, dirs, impl=impl, device="cuda")
+        render_fused(scene, cfg, dirs, impl=impl, device="cuda", soup=soup)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
@@ -68,7 +75,7 @@ def profile(paths=VAULT, impl: str = "auto") -> dict:
         k[0] += 1
         k[1] += ev.time_range.end - ev.time_range.start
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
-    hit = [(n, v) for n, v in kernels.items() if "closest_hit" in n]
+    hit = {n: v for n, v in kernels.items() if "closest_hit_" in n}
     device_ms = sum(v[1] for v in kernels.values()) / 1e3
     busy_ms = _busy_us(intervals) / 1e3
     return {
@@ -80,12 +87,60 @@ def profile(paths=VAULT, impl: str = "auto") -> dict:
         "device_kernel_ms": device_ms if intervals else "not measured",
         "device_busy_ms": busy_ms if intervals else "not measured",
         "device_idle_share": 1.0 - busy_ms / (wall * 1e3) if intervals else "not measured",
-        "closest_hit_launches": sum(v[0] for _, v in hit),
-        "closest_hit_ms": sum(v[1] for _, v in hit) / 1e3,
+        # the sweep, block-order and unpack kernels of csrc/closest_hit.cu
+        "closest_hit_kernels": {
+            re.search(r"closest_hit_\w+", n).group(0): {
+                "count": v[0], "ms": v[1] / 1e3
+            }
+            for n, v in hit.items()
+        },
+        "closest_hit_ms": sum(v[1] for v in hit.values()) / 1e3,
+        "host_us_per_call": host_us,
         "top_kernels": [
             {"name": n[:120], "count": v[0], "ms": v[1] / 1e3} for n, v in top[:12]
         ],
     }
+
+
+def host_cost(soup, calls: int = 200) -> dict:
+    """Host microseconds per call, over ``calls`` calls enqueued back to
+    back on one group of SWEEP_RAYS rays (the device's part is a few
+    microseconds, so the wall is the host's): the whole closest_hit, its
+    schedule (sweep_schedule: the order kernel), the kernel wrapper
+    (intersect_cuda.closest_hit_cuda: checks, allocations, memset, sweep,
+    unpack), and one bare PyTorch launch for scale."""
+    import torch
+
+    from .ops import intersect_cuda
+    from .ops.intersect import SWEEP_RAYS, closest_hit, sweep_schedule
+
+    dev = soup.device
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    d = torch.randn((SWEEP_RAYS, 3), generator=gen).to(dev)
+    d = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+    o = ((soup.bounds[0] + soup.bounds[1]) / 2).expand(SWEEP_RAYS, 3).contiguous()
+    t_max = torch.full((SWEEP_RAYS,), float("inf"), device=dev)
+    t_decide = torch.zeros((SWEEP_RAYS,), device=dev)
+    order, slices = sweep_schedule(o, d, t_max, soup.block_aabb)
+    parts = {
+        "closest_hit": lambda: closest_hit(o, d, soup),
+        "sweep_schedule": lambda: sweep_schedule(o, d, t_max, soup.block_aabb),
+        "closest_hit_cuda": lambda: intersect_cuda.closest_hit_cuda(
+            o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices
+        ),
+        "one_torch_op": lambda: t_decide.add_(0.0),
+    }
+    out = {}
+    for name, fn in parts.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    return out
 
 
 def main(argv=None) -> int:
