@@ -31,9 +31,27 @@ Phases, each printed as one JSON line with its wall time:
   5. small    a small box render on the card against the same render on
               the CPU (the path the CPU tests hold against the JAX package):
               within -60 dB of peak
-  6. kernels  one JSON line per the port's kernel table; the device line
-              also carries the instruction counts of the sweep kernel's
-              loops, read from `cuobjdump -sass` where the toolkit has it
+  6. hrtf     the CLI renders the binaural vault demo (hrtf_vault.json:
+              50,000 rays x 128 reflections, HRTF) on cuda, cold and warm:
+              a stereo WAV, finite and non-silent, every sweep through the
+              kernels; render_fused on it with the kernel and with the plain
+              sweep, executed-pair counters on: bit-identical IRs and equal
+              counts per sweep kind; a small HRTF render on the card against
+              the CPU fed the card's trace records (records within the CPU
+              tests' tolerances, IRs within -60 dB)
+  7. hall     the north-star hall (scripts/gen_hall.py, 101,568 triangles,
+              1,024 table blocks) generated into the temporary directory:
+              8,192 Morton-sorted primary rays, kernel against plain, bit for
+              bit (results, counters, order tables)
+  8. north    the north star: 1,000,000 rays x 16 reflections through the
+              hall, stereo HRTF, cold and warm, with walls, phases, the
+              chunk chosen, peak device memory, executed pairs by kind and
+              the order kernel's time at this table; then 65,536 rays in one
+              pass against chunks of 16,384 (within -60 dB)
+  9. kernels  one JSON line per the port's kernel table (the sweep, the
+              block order and the unpack kernel); the device line also
+              carries the instruction counts of the sweep kernel's loops,
+              read from `cuobjdump -sass` where the toolkit has it
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them. Any failure prints
@@ -51,6 +69,7 @@ import tempfile
 import threading
 import time
 import traceback
+from unittest import mock
 
 DEADLINE_S = 300
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -59,6 +78,24 @@ VAULT = (
     os.path.join(REPO, "assets", "test_models", "vault.obj"),
     os.path.join(REPO, "assets", "materials", "vault.json"),
 )
+HRTF_VAULT = (os.path.join(REPO, "assets", "configs", "hrtf_vault.json"), *VAULT[1:])
+# the north star (bench.py:90-119): 1M rays x 16 reflections through the
+# 100k-triangle hall of scripts/gen_hall.py, stereo HRTF
+NORTH_STAR = {
+    "rays": 1_000_000,
+    "reflections": 16,
+    "sample_rate": 44100,
+    "bit_depth": 16,
+    "source_position": [12.0, 6.0, 8.0],
+    "mic_position": [28.0, 5.0, 20.0],
+    "attenuation_model": {"hrtf": {"facing": [0, 0, 1], "up": [0, 1, 0]}},
+    "filter": "linkwitz_riley",
+    "normalize": True,
+    "trim_tail": False,
+}
+HALL_TRIANGLES = 100_000
+# the north star's one-pass against chunked check: rays and rays per chunk
+CHUNK_CHECK = (65_536, 16_384)
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
 # cores, HBM3 bandwidth
 FP32_PEAK = 67e12
@@ -330,7 +367,9 @@ def _phase_kernel(ph, dev):
     import torch
 
     from rayverb_tpu_torch.config.schema import load_config
-    from rayverb_tpu_torch.ops.intersect import closest_hit, scene_fields, soup_from_scene
+    from rayverb_tpu_torch.ops.intersect import (
+        closest_hit, scene_fields, soup_from_scene, sweep_schedule,
+    )
     from rayverb_tpu_torch.ops.trace import _shadow_rows
     from rayverb_tpu_torch.params import soup_from_numpy
     from rayverb_tpu_torch.scene import load_scene
@@ -347,6 +386,9 @@ def _phase_kernel(ph, dev):
     d = torch.from_numpy(morton_sort(random_directions(n, seed=0))).to(dev)
     o = src.expand(n, 3).contiguous()
     batches = [_compare_batch("primary", soup, o, d, inf, zero)]
+    order, slices = sweep_schedule(o, d, inf, soup.block_aabb)
+    batches[0]["unpack"] = _unpack_record(
+        soup, (o, d, soup.packed, soup.block_aabb, inf, zero), order, slices, n)
 
     first = closest_hit(o, d, soup, impl="plain")
     t_safe = torch.where(first.hit, first.t, 0.0)
@@ -399,7 +441,10 @@ def _phase_kernel(ph, dev):
     return batches
 
 
-def _phase_main(ph, tmp):
+def _phase_main(ph, tmp, paths=VAULT):
+    """The port's CLI on ``paths`` (config, model, materials), cold and
+    warm: a 2-channel WAV, finite and non-silent, and every sweep through
+    the order and sweep kernels (counts reset just before each run)."""
     import numpy as np
 
     from rayverb_tpu_torch import cli
@@ -408,14 +453,15 @@ def _phase_main(ph, tmp):
     from rayverb_tpu_torch.ops import intersect_cuda
     from rayverb_tpu_torch.ops.trace import sweep_count
 
-    expected = sweep_count(load_config(VAULT[0]).reflections)
+    expected = sweep_count(load_config(paths[0]).reflections)
+    name = os.path.splitext(os.path.basename(paths[0]))[0]
     runs = []
     for label in ("cold", "warm"):
-        out = os.path.join(tmp, f"vault_{label}.wav")
+        out = os.path.join(tmp, f"{name}_{label}.wav")
         intersect_cuda.launches = 0
         intersect_cuda.order_launches = 0
         t0 = time.perf_counter()
-        rc = cli.main([*VAULT, out, "--stats", "--device", "cuda"])
+        rc = cli.main([*paths, out, "--stats", "--device", "cuda"])
         wall = time.perf_counter() - t0
         launches = intersect_cuda.launches
         order_launches = intersect_cuda.order_launches
@@ -426,6 +472,7 @@ def _phase_main(ph, tmp):
         run = {"run": label, "wall_s": wall, "launches": launches,
                "order_launches": order_launches,
                "channels": int(data.shape[0]), "samples": int(data.shape[1]),
+               "finite": bool(np.all(np.isfinite(data))),
                "sample_rate": sr, "bit_depth": bits, "peak": peak}
         runs.append(run)
         if data.shape[0] != 2 or data.shape[1] == 0:
@@ -509,15 +556,307 @@ def _phase_small_vs_cpu(ph, dev):
     dirs = random_directions(cfg.rays, seed=cfg.seed)
     gpu, _ = render_fused(scene, cfg, dirs, device=dev)
     cpu, _ = render_fused(scene, cfg, dirs, device="cpu")
-    n = min(gpu.shape[-1], cpu.shape[-1])
-    peak = float(np.abs(cpu).max())
-    g = gpu[:, :n].astype(np.float64)
-    errs = [np.abs(g - np.roll(cpu, s, axis=-1)[:, :n]) for s in (0, 1, -1)]
-    err = float(np.minimum(np.minimum(errs[0], errs[1]), errs[2]).max()) / peak
+    err = _ir_error(gpu, cpu)
     ph.out.update({"shape_gpu": list(gpu.shape), "shape_cpu": list(cpu.shape),
                    "max_err_over_peak": err})
     if not np.all(np.isfinite(gpu)) or err >= 1e-3 or abs(gpu.shape[-1] - cpu.shape[-1]) > 1:
         raise AssertionError(f"card render differs from the CPU's: {ph.out}")
+
+
+def _ir_error(got, want):
+    """max |got - want| / peak(want), forgiving single-sample displacement
+    (the CPU tests' -60 dB criterion)."""
+    import numpy as np
+
+    n = min(got.shape[-1], want.shape[-1])
+    peak = float(np.abs(want).max())
+    g = got[:, :n].astype(np.float64)
+    errs = [np.abs(g - np.roll(want, s, axis=-1)[:, :n]) for s in (0, 1, -1)]
+    return float(np.minimum(np.minimum(errs[0], errs[1]), errs[2]).max()) / peak
+
+
+def _phase_hrtf_render(ph, dev):
+    """render_fused on the binaural vault with the kernel and with the plain
+    sweep, executed-pair counters on: bit-identical IRs, equal counts per
+    sweep kind."""
+    import numpy as np
+    import torch
+
+    from rayverb_tpu_torch.config.schema import load_config
+    from rayverb_tpu_torch.ops.render import render_fused
+    from rayverb_tpu_torch.scene import load_scene
+    from rayverb_tpu_torch.utils.directions import random_directions
+
+    cfg = load_config(HRTF_VAULT[0])
+    scene = load_scene(HRTF_VAULT[1], HRTF_VAULT[2])
+    dirs = random_directions(cfg.rays, seed=cfg.seed)
+    out = {}
+    with mock.patch.dict(os.environ, RAYVERB_SWEEP_STATS="1"):
+        for impl in ("cuda", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ir, info = render_fused(scene, cfg, dirs, impl=impl, device=dev, stats=True)
+            out[impl] = (ir, time.perf_counter() - t0, info)
+    a, b = out["cuda"][0], out["plain"][0]
+    ea = out["cuda"][2]["pair_tests_executed"]
+    eb = out["plain"][2]["pair_tests_executed"]
+    ph.out.update({
+        "rays": cfg.rays,
+        "shape": list(a.shape),
+        "bit_identical": bool(a.shape == b.shape and np.array_equal(a, b)),
+        "max_abs_diff": float(np.abs(a.astype(np.float64) - b).max()) if a.shape == b.shape else None,
+        "kernel_wall_s": out["cuda"][1],
+        "plain_wall_s": out["plain"][1],
+        "kernel_timings": out["cuda"][2]["timings"],
+        "pair_tests_executed": ea,
+        "pair_tests_executed_plain": eb,
+        "pair_tests_issued": out["cuda"][2]["pair_tests_issued"],
+    })
+    if a.shape[0] != 2 or not (np.all(np.isfinite(a)) and np.abs(a).max() > 0):
+        raise AssertionError("HRTF render is not stereo, finite and non-silent")
+    if not ph.out["bit_identical"] or ea != eb:
+        raise AssertionError("the kernel's HRTF render or its executed pairs differ from "
+                             f"the plain sweep's: {ph.out}")
+
+
+def _phase_hrtf_small_vs_cpu(ph, dev):
+    """A small HRTF render on the card against the CPU's render of the
+    card's own trace records: the records of the card's trace against the
+    CPU's trace (the CPU tests' tolerances: volumes 1e-6, positions 1e-4 m,
+    times 1e-6 s, image indices equal), and the IRs within -60 dB. The CPU
+    renders the card's records because an ear's ITD shift moves an arrival
+    across a bin edge when two traces' times differ by an ulp near it."""
+    import numpy as np
+
+    from rayverb_tpu_torch.config.schema import parse_config
+    from rayverb_tpu_torch.ops import render
+    from rayverb_tpu_torch.scene import load_scene
+    from rayverb_tpu_torch.utils.directions import random_directions
+
+    cfg = parse_config(json.dumps({
+        "rays": 256, "reflections": 8, "sample_rate": 16000, "bit_depth": 16,
+        "source_position": [0.031, 1.989, 2.007],
+        "mic_position": [0.013, 2.017, 0.021],
+        "attenuation_model": {"hrtf": {"facing": [0, 0, 1], "up": [0, 1, 0]}},
+        "filter": "twopass", "trim_predelay": True, "seed": 3,
+    }))
+    scene = load_scene(
+        os.path.join(REPO, "assets", "test_models", "large_square.obj"),
+        os.path.join(REPO, "assets", "materials", "mat.json"),
+    )
+    dirs = random_directions(cfg.rays, seed=cfg.seed)
+    real = render._trace_impl
+    recorded = {}
+
+    def recorder(label):
+        def record(*args, consume_row, **kw):
+            rows = recorded[label] = []
+
+            def keep(row):
+                rows.append(tuple(x.cpu() for x in row))
+                consume_row(row)
+
+            images = real(*args, consume_row=keep, **kw)
+            recorded[label + ":images"] = tuple(x.cpu() for x in images)
+            return images
+
+        return record
+
+    def replay(*args, consume_row, **kw):
+        for row in recorded["card"]:
+            consume_row(row)
+        return recorded["card:images"]
+
+    try:
+        render._trace_impl = recorder("card")
+        gpu, _ = render.render_fused(scene, cfg, dirs, device=dev)
+        render._trace_impl = recorder("cpu")
+        render.render_fused(scene, cfg, dirs, device="cpu")
+        render._trace_impl = replay
+        cpu, _ = render.render_fused(scene, cfg, dirs, device="cpu")
+    finally:
+        render._trace_impl = real
+    diffs = {}
+    card, host = recorded["card"], recorded["cpu"]
+    for i, name in enumerate(("volume", "position", "time")):
+        diffs["diffuse_" + name] = max(float((a[i] - b[i]).abs().max())
+                                       for a, b in zip(card, host))
+    ci, hi_ = recorded["card:images"], recorded["cpu:images"]
+    for i, name in enumerate(("volume", "position", "time")):
+        diffs["image_" + name] = float((ci[i] - hi_[i]).abs().max())
+    diffs["image_index_mismatch"] = int((ci[3] != hi_[3]).sum())
+    err = _ir_error(gpu, cpu)
+    ph.out.update({"shape_gpu": list(gpu.shape), "shape_cpu": list(cpu.shape),
+                   "record_max_abs_diff": diffs, "max_err_over_peak": err})
+    tol = {"diffuse_volume": 1e-6, "diffuse_position": 1e-4, "diffuse_time": 1e-6,
+           "image_volume": 1e-6, "image_position": 1e-3, "image_time": 1e-6,
+           "image_index_mismatch": 0}
+    if any(diffs[k] > v for k, v in tol.items()):
+        raise AssertionError(f"the card's HRTF trace differs from the CPU's: {diffs}")
+    if gpu.shape[0] != 2 or not np.all(np.isfinite(gpu)) or err >= 1e-3 or gpu.shape != cpu.shape:
+        raise AssertionError(f"card HRTF render differs from the CPU's: {ph.out}")
+
+
+def _hall(ph, tmp):
+    """The north-star hall, generated into ``tmp`` by scripts/gen_hall.py
+    (imported by path; it imports neither package) and loaded with
+    mat.json; its sizes and walls go into the phase's line."""
+    import importlib.util
+
+    from rayverb_tpu_torch.scene import load_scene
+
+    spec = importlib.util.spec_from_file_location(
+        "gen_hall", os.path.join(REPO, "scripts", "gen_hall.py"))
+    gen_hall = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen_hall)
+    path = os.path.join(tmp, "hall.obj")
+    t0 = time.perf_counter()
+    ph.out["triangles"] = gen_hall.generate(path, HALL_TRIANGLES)
+    t1 = time.perf_counter()
+    scene = load_scene(path, os.path.join(REPO, "assets", "materials", "mat.json"))
+    ph.out.update(generate_s=t1 - t0, load_s=time.perf_counter() - t1)
+    return scene
+
+
+def _phase_hall(ph, dev, scene):
+    """8,192 Morton-sorted primary rays against the hall's 1,024-block table,
+    kernel against plain, bit for bit (as in kernel_vs_plain)."""
+    import torch
+
+    from rayverb_tpu_torch.ops.intersect import soup_from_scene
+    from rayverb_tpu_torch.utils.directions import morton_sort, random_directions
+
+    soup = soup_from_scene(scene, device=dev)
+    m = 8192
+    d = torch.from_numpy(morton_sort(random_directions(m, seed=0))).to(dev)
+    o = torch.tensor(NORTH_STAR["source_position"], device=dev).expand(m, 3).contiguous()
+    rec = _compare_batch("hall_primary", soup, o, d,
+                         torch.full((m,), float("inf"), device=dev),
+                         torch.zeros((m,), device=dev))
+    ph.out.update({"table_blocks": int(soup.block_aabb.shape[0]), "batch": rec})
+    if rec["hits"] != m:
+        raise AssertionError(f"primary rays inside the closed hall must all hit: {rec['hits']}")
+    return rec
+
+
+def _phase_north_star(ph, dev, scene):
+    """The north star, cold and warm, then a one-pass against a chunked
+    render of a smaller population."""
+    import numpy as np
+    import torch
+
+    from rayverb_tpu_torch.config.schema import parse_config
+    from rayverb_tpu_torch.ops import intersect_cuda
+    from rayverb_tpu_torch.ops.intersect import soup_from_scene
+    from rayverb_tpu_torch.ops.render import render_fused
+    from rayverb_tpu_torch.utils.directions import morton_sort, random_directions
+
+    cfg = parse_config(json.dumps(NORTH_STAR))
+    dirs = random_directions(cfg.rays, seed=0)
+    runs = []
+    with mock.patch.dict(os.environ, RAYVERB_SWEEP_STATS="1"):
+        for label in ("cold", "warm"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            intersect_cuda.launches = 0
+            intersect_cuda.order_launches = 0
+            t0 = time.perf_counter()
+            ir, info = render_fused(scene, cfg, dirs, device=dev, stats=True)
+            wall = time.perf_counter() - t0
+            run = {
+                "run": label, "wall_s": wall,
+                "trace_bin_s": info["timings"]["trace_bin"],
+                "finalize_s": info["timings"]["finalize"],
+                "timings": info["timings"],
+                "ray_chunk": info["ray_chunk"], "chunks": info["chunks"],
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                "memory_estimate_bytes": info["memory_estimate_bytes"],
+                "pair_tests_executed": info["pair_tests_executed"],
+                "pair_tests_executed_total": info["pair_tests_executed_total"],
+                "pair_tests_issued": info["pair_tests_issued"],
+                "ray_bounces_per_s": info["ray_bounces_per_s"],
+                "launches": intersect_cuda.launches,
+                "order_launches": intersect_cuda.order_launches,
+                "shape": list(ir.shape),
+            }
+            runs.append(run)
+            _emit({"north_star_run": run})
+            if ir.shape[0] != 2 or not np.all(np.isfinite(ir)) or np.abs(ir).max() == 0:
+                raise AssertionError(f"north-star IR is not stereo, finite and non-silent: {run}")
+            if run["launches"] == 0 or run["order_launches"] == 0:
+                raise AssertionError(f"north star ran no kernel: {run}")
+    # the order kernel's time per launch at this table: the 1M primary rays
+    soup = soup_from_scene(scene, device=dev)
+    m = cfg.rays
+    d = torch.from_numpy(morton_sort(dirs)).to(dev)
+    o = torch.tensor(cfg.source_position, device=dev).expand(m, 3).contiguous()
+    tm = torch.full((m,), float("inf"), device=dev)
+    order_ms = _cuda_ms(lambda: intersect_cuda.block_order_cuda(o, d, tm, soup.block_aabb), 5)
+    order = intersect_cuda.block_order_cuda(o, d, tm, soup.block_aabb)
+    nb = soup.block_aabb.shape[0]
+    order_bytes_ms = 4 * (m + order.shape[0] * 6 + 8 * nb + order.numel()) / HBM_BYTES_PER_S * 1e3
+    # one pass against chunks, on a smaller population
+    small = parse_config(json.dumps(dict(NORTH_STAR, rays=CHUNK_CHECK[0])))
+    sdirs = random_directions(small.rays, seed=1)
+    one, one_info = render_fused(scene, small, sdirs, device=dev)
+    chunked, chunk_info = render_fused(scene, small, sdirs, device=dev,
+                                       ray_chunk=CHUNK_CHECK[1])
+    err = _ir_error(chunked, one)
+    ph.out.update({
+        "table_blocks": nb, "rays": cfg.rays,
+        "reflections": cfg.reflections, "runs": runs,
+        "order_ms_per_launch_1M_rays": order_ms,
+        "order_table_bytes": order.numel() * 4,
+        "order_bound_ms_1M_rays": order_bytes_ms,
+        "chunk_check": {"rays": small.rays, "one_pass_chunks": one_info["chunks"],
+                        "chunks": chunk_info["chunks"], "shape": list(chunked.shape),
+                        "max_err_over_peak": err},
+    })
+    if one_info["chunks"] != 1 or chunk_info["chunks"] != -(-CHUNK_CHECK[0] // CHUNK_CHECK[1]):
+        raise AssertionError(f"chunking not as asked: {ph.out['chunk_check']}")
+    if err >= 1e-3 or chunked.shape != one.shape:
+        raise AssertionError(f"chunked render differs from one pass: {ph.out['chunk_check']}")
+    return runs
+
+
+def _unpack_record(soup, args, order, slices, m):
+    """The unpack kernel (closest_hit_unpack, launched by the same wrapper
+    call as the sweep) at one batch: device ms per launch from
+    torch.profiler, its plain version's ms (unpack_keys of the merged keys
+    and the seed), and its bound by bytes (keys and t_max read, best_t and
+    best_i written)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rayverb_tpu_torch.ops import intersect_cuda
+    from rayverb_tpu_torch.ops.intersect import pack_keys, unpack_keys
+
+    reps = 20
+    intersect_cuda.closest_hit_cuda(*args, order, slices)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            intersect_cuda.closest_hit_cuda(*args, order, slices)
+        torch.cuda.synchronize()
+    times = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "closest_hit_unpack" in e.name]
+    if len(times) != reps:
+        raise AssertionError(f"the profiler saw {len(times)} unpack launches of {reps}")
+    t, i = intersect_cuda.closest_hit_cuda(*args, order, slices)
+    keys = pack_keys(t, i)
+    seed = pack_keys(args[4], torch.full_like(i, -1))
+    plain_t, plain_i = unpack_keys(torch.minimum(keys, seed))
+    mismatch = int((plain_t.view(torch.int32) != t.view(torch.int32)).sum()
+                   + (plain_i != i).sum())
+    if mismatch:
+        raise AssertionError(f"unpack: the plain version differs in {mismatch} rows")
+    return {
+        "ms": sum(times) / reps / 1e3,
+        "plain_ms": _cuda_ms(lambda: unpack_keys(torch.minimum(keys, seed)), 20),
+        "bound_ms": 20 * m / HBM_BYTES_PER_S * 1e3,
+        "mismatch": mismatch,
+    }
 
 
 def main() -> int:
@@ -563,6 +902,17 @@ def main() -> int:
             _phase_render(ph, dev)
         with Phase("small_render_card_vs_cpu") as ph:
             _phase_small_vs_cpu(ph, dev)
+        with Phase("hrtf_main_path") as ph:
+            hrtf_runs = _phase_main(ph, tmp, HRTF_VAULT)
+        with Phase("hrtf_render_kernel_vs_plain") as ph:
+            _phase_hrtf_render(ph, dev)
+        with Phase("hrtf_small_card_vs_cpu") as ph:
+            _phase_hrtf_small_vs_cpu(ph, dev)
+        with Phase("hall_kernel_vs_plain") as ph:
+            hall_scene = _hall(ph, tmp)
+            hall = _phase_hall(ph, dev, hall_scene)
+        with Phase("north_star") as ph:
+            north = _phase_north_star(ph, dev, hall_scene)
     except Exception:
         traceback.print_exc()
         return 1
@@ -572,14 +922,19 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     primary = batches[0]
+    unpack = primary["unpack"]
+    # launches of each path, counted from 0 just before its warm run (the
+    # north star's: its warm render); "launches" is the binaural vault's
+    paths = {"main_path": runs[-1], "hrtf_main_path": hrtf_runs[-1], "north_star": north[-1]}
     _emit({"kernels": [{
         "name": "closest_hit",
         "route": "cuda",
         "source": "rayverb_tpu_torch/csrc/closest_hit.cu",
         "replaces": "rayverb_tpu/ops/intersect_pallas.py:139",
-        "launches": runs[-1]["launches"],
-        "max_abs_err": max(b["max_abs_err"] for b in batches),
-        "max_abs_diff_vs_plain": max(b["max_abs_err"] for b in batches),
+        "launches": hrtf_runs[-1]["launches"],
+        "launches_by_path": {k: r["launches"] for k, r in paths.items()},
+        "max_abs_err": max(b["max_abs_err"] for b in batches + [hall]),
+        "max_abs_diff_vs_plain": max(b["max_abs_err"] for b in batches + [hall]),
         "ms": primary["ms"],
         "plain_ms": primary["plain_ms"],
         "bound_ms": primary["bound_ms"],
@@ -588,17 +943,38 @@ def main() -> int:
         "library_ms": None,
         "executed_pairs": primary["executed_pairs"],
         "schedule": primary["schedule"],
+        "hall_ms": hall["ms"],
+        "hall_plain_ms": hall["plain_ms"],
+        "hall_bound_ms": hall["bound_ms"],
     }, {
         "name": "closest_hit_order",
         "route": "cuda",
         "source": "rayverb_tpu_torch/csrc/closest_hit.cu",
         "replaces": "rayverb_tpu/ops/intersect_pallas.py:604",
-        "launches": runs[-1]["order_launches"],
-        "max_abs_err": float(max(b["order_mismatch"] for b in batches)),
+        "launches": hrtf_runs[-1]["order_launches"],
+        "launches_by_path": {k: r["order_launches"] for k, r in paths.items()},
+        "max_abs_err": float(max(b["order_mismatch"] for b in batches + [hall])),
         "ms": primary["order_ms"],
         "plain_ms": primary["order_plain_ms"],
         "bound_ms": primary["order_bound_ms"],
         "bound_by": primary["order_bound_by"],
+        "library_ms": None,
+        "hall_ms": hall["order_ms"],
+        "hall_plain_ms": hall["order_plain_ms"],
+    }, {
+        "name": "closest_hit_unpack",
+        "route": "cuda",
+        "source": "rayverb_tpu_torch/csrc/closest_hit.cu",
+        "replaces": "rayverb_tpu/ops/intersect_pallas.py:472",
+        # launched by the same wrapper call as the sweep, so it shares the
+        # sweep's count
+        "launches": hrtf_runs[-1]["launches"],
+        "launches_by_path": {k: r["launches"] for k, r in paths.items()},
+        "max_abs_err": float(unpack["mismatch"]),
+        "ms": unpack["ms"],
+        "plain_ms": unpack["plain_ms"],
+        "bound_ms": unpack["bound_ms"],
+        "bound_by": "bytes",
         "library_ms": None,
     }]})
     print(smi, flush=True)

@@ -7,8 +7,9 @@ Same four positionals, error texts and exit codes as rayverb_tpu/cli.py
         <out.{wav,aif[f]}> [--device cuda|cpu] [--seed N] [--stats]
 
 The render is the fused one (rayverb_tpu_torch.ops.render.render_fused),
-on the GPU unless ``--device cpu`` is given. Errors: message to stderr,
-exit code 1.
+for speaker and HRTF configs, on the GPU unless ``--device cpu`` is given.
+With ``--stats`` and RAYVERB_SWEEP_STATS set, the executed pair tests by
+sweep kind are printed too. Errors: message to stderr, exit code 1.
 """
 
 from __future__ import annotations
@@ -100,10 +101,6 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
         return 1
-    if config.attenuation_model.is_hrtf:
-        print("HRTF attenuation is not ported yet", file=sys.stderr)
-        return 1
-
     try:
         import time as _time
 
@@ -145,6 +142,16 @@ def main(argv=None) -> int:
                 f"{info['pair_tests_per_s'] / 1e9:.2f} G/s",
                 file=sys.stderr,
             )
+            if "pair_tests_executed" in info:
+                kinds = "  ".join(
+                    f"{k}: {v}" for k, v in info["pair_tests_executed"].items()
+                )
+                print(
+                    f"pair-tests executed: {info['pair_tests_executed_total']} "
+                    f"[{kinds}]  "
+                    f"{info['pair_tests_executed_per_s'] / 1e9:.2f} G/s",
+                    file=sys.stderr,
+                )
     except NotImplementedError as e:
         print(e, file=sys.stderr)
         return 1

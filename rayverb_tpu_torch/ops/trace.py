@@ -43,6 +43,13 @@ _DEAD_ORIGIN = 3.0e8
 _U32 = 0xFFFFFFFF
 
 
+# kinds of sweep rows whose executed pair tests a trace counts (the JAX
+# trace's sweep_stats keys, in sorted order): bounce hits, image mic
+# visibility, image-path validation segments, reversed mic-shadow rows
+SWEEP_KINDS = ("bounce", "imgvis", "seg", "shadow")
+_BOUNCE, _IMGVIS, _SEG, _SHADOW = range(len(SWEEP_KINDS))
+
+
 def sweep_count(nreflections: int) -> int:
     """Closest-hit sweeps one trace launches: the direct path, then two per
     bounce (bounce hit + shadow/validation sweep)."""
@@ -192,6 +199,7 @@ def _trace_impl(
     impl: str = "auto",
     consume_row=None,
     resort: bool = False,
+    stats: torch.Tensor | None = None,
 ):
     """The trace loop. With ``consume_row=None`` returns TraceOutputs (dense
     per-ray rows). Otherwise each diffuse row (volume (N,8), position (N,3),
@@ -199,7 +207,15 @@ def _trace_impl(
     returns the image slots (vol, pos, time, index), each (N, S, ...).
 
     resort=True feeds each later bounce sweep its rows sorted by the mix6
-    key (a sweep-local permutation; the ray state stays in row order)."""
+    key (a sweep-local permutation; the ray state stays in row order).
+
+    stats, a (len(SWEEP_KINDS),) int64 tensor on the soup's device: every
+    sweep but the direct path's runs with the kernel's per-row counters,
+    and their sums by row kind are added into it in place, on the device
+    (JAX trace.py:492-523). Each image-phase sweep holds shadow rows, then
+    segment rows, then image-visibility rows; its counters are split at
+    those row ranges exactly. With stats=None the sweeps run without
+    counters."""
     dev = soup.device
     mic = torch.as_tensor(np.asarray(mic, np.float32), device=dev)
     source = torch.as_tensor(np.asarray(source, np.float32), device=dev)
@@ -215,20 +231,31 @@ def _trace_impl(
     def air_attenuation(distance):
         return torch.exp(distance[..., None] * air)
 
-    def sweep(origins, dirs, t_max, t_decide=None):
-        return closest_hit(
-            origins, dirs, soup, impl=impl, t_max=t_max, t_decide=t_decide
+    def sweep(origins, dirs, t_max, t_decide=None, kinds=()):
+        """closest_hit; with stats, executed pairs of the rows [start, end)
+        of each (kind, start, end) of ``kinds`` go to stats[kind]."""
+        if stats is None or not kinds:
+            return closest_hit(
+                origins, dirs, soup, impl=impl, t_max=t_max, t_decide=t_decide
+            )
+        hit, executed = closest_hit(
+            origins, dirs, soup, impl=impl, t_max=t_max, t_decide=t_decide,
+            with_stats=True,
         )
+        for kind, start, end in kinds:
+            stats[kind] += executed[start:end].sum()
+        return hit
 
     def sorted_bounce_hit(pos, dirv, alive, do_sort):
         o = torch.where(alive[:, None], pos, _DEAD_ORIGIN)
         b = torch.where(alive, float("inf"), 0.0)
+        kinds = ((_BOUNCE, 0, n),)
         if not (resort and do_sort):
-            return sweep(o, dirv, b)
+            return sweep(o, dirv, b, kinds=kinds)
         perm = torch.argsort(
             _ray_sort_key(pos, dirv, lo_b, inv_span), stable=True
         )
-        hs = sweep(o[perm], dirv[perm], b[perm])
+        hs = sweep(o[perm], dirv[perm], b[perm], kinds=kinds)
         return _gather_hit(hs, _inv_permutation(perm))
 
     def diffuse_impulse(state, hit, vis, t_safe):
@@ -355,6 +382,11 @@ def _trace_impl(
             torch.cat(
                 [sh_decide, torch.zeros((g * k1,), device=dev), mag_image_s]
             ),
+            kinds=(
+                (_SHADOW, 0, n),
+                (_SEG, n, n + g * k1),
+                (_IMGVIS, n + g * k1, n + g * (k1 + 1)),
+            ),
         )
         seg_t_s = hits.t[n : n + g * k1].reshape(g, k1)
         seg_hit_s = hits.hit[n : n + g * k1].reshape(g, k1)
@@ -401,7 +433,9 @@ def _trace_impl(
         sh_origin, sh_d, sh_bound, sh_decide, sh_inv, sh_mag_eff = _shadow_rows(
             mic, intersection, alive2, mag
         )
-        shadow = sweep(sh_origin, sh_d, sh_bound, sh_decide)
+        shadow = sweep(
+            sh_origin, sh_d, sh_bound, sh_decide, kinds=((_SHADOW, 0, n),)
+        )
         vis = _visible_from_hit(_gather_hit(shadow, sh_inv), sh_mag_eff)
         state, row = diffuse_impulse(state, bounce, vis, t_safe)
         emit_row(row)

@@ -1,6 +1,6 @@
 """Where the time of one render goes on the GPU.
 
-    python -m rayverb_tpu_torch.profile_render [config model materials]
+    python -m rayverb_tpu_torch.profile_render [config [model materials]]
 
 Renders the scene once to warm up, then once more under torch.profiler
 (CPU and CUDA activities), and prints one JSON object: the render's wall,
@@ -9,7 +9,8 @@ kernels' launches and time, and the device's busy share (union of kernel
 intervals over the wall). It also prints the host's cost of one sweep
 (host_cost): microseconds of host time per call of intersect.closest_hit
 and of its parts, on a batch so small that the device keeps up. Defaults
-to the vault demo. Needs a CUDA device.
+to the vault demo; a config alone (e.g. assets/configs/hrtf_vault.json)
+renders on the vault's model and materials. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -80,6 +81,7 @@ def profile(paths=VAULT, impl: str = "auto") -> dict:
     busy_ms = _busy_us(intervals) / 1e3
     return {
         "device": torch.cuda.get_device_name(0),
+        "config": paths[0],
         "rays": cfg.rays,
         "reflections": cfg.reflections,
         "wall_ms": wall * 1e3,
@@ -145,7 +147,10 @@ def host_cost(soup, calls: int = 200) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    paths = tuple(argv[:3]) if len(argv) >= 3 else VAULT
+    if len(argv) not in (0, 1, 3):
+        print("usage: profile_render [config [model materials]]", file=sys.stderr)
+        return 2
+    paths = tuple(argv) if len(argv) == 3 else (*argv, *VAULT[len(argv):])
     print(json.dumps(profile(paths)))
     return 0
 

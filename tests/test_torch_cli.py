@@ -98,15 +98,25 @@ def test_cli_unported_flags(bedroom_args, tmp_path, capsys, extra, message):
     assert message in capsys.readouterr().err
 
 
-def test_cli_hrtf_config_not_ported(bedroom_args, tmp_path, capsys):
+def test_cli_hrtf_config_not_ported(bedroom_args, tmp_path, capsys, monkeypatch):
+    """HRTF configs render through the CLI (it once refused them; the name
+    is kept): exit 0 and a stereo WAV; with --stats and
+    RAYVERB_SWEEP_STATS the executed pair tests by kind are printed."""
+    monkeypatch.setenv("RAYVERB_SWEEP_STATS", "1")
     args = list(bedroom_args)
     args[0] = _write_config(
         tmp_path / "h.json",
         attenuation_model={"hrtf": {"facing": [0, 0, 1], "up": [0, 1, 0]}},
     )
-    rc = port_cli.main(args + [str(tmp_path / "ir.wav"), "--device", "cpu"])
-    assert rc == 1
-    assert "not ported yet" in capsys.readouterr().err
+    out = tmp_path / "ir.wav"
+    rc = port_cli.main(args + [str(out), "--device", "cpu", "--stats"])
+    err = capsys.readouterr().err
+    assert rc == 0, err
+    data, sr, bits = read_audio(str(out))
+    assert (sr, bits) == (8000.0, 16)
+    assert data.shape[0] == 2 and data.shape[1] > 100
+    assert np.all(np.isfinite(data)) and np.abs(data).max() > 0.5
+    assert "pair-tests executed:" in err and "bounce:" in err and "shadow:" in err
 
 
 def test_cli_default_device_is_cuda(bedroom_args, tmp_path, capsys):

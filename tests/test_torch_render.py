@@ -71,6 +71,33 @@ def scenes(assets_dir):
     }
 
 
+def feed_jax_trace(monkeypatch, scene, calls=None):
+    """Replace the port render's trace by the JAX package's trace_chunk of
+    the same rays, fed through the port's consume protocol, so that both
+    renders bin the same trace records. With ``calls``, each call's
+    directions are appended to it."""
+    from rayverb_tpu.ops.intersect import soup_from_scene
+    from rayverb_tpu.ops.trace import trace_chunk
+
+    soup = soup_from_scene(scene)
+
+    def trace(_soup, mic, source, directions, *, nreflections, impl,
+              consume_row, resort, stats):
+        directions = np.asarray(directions)
+        if calls is not None:
+            calls.append(directions)
+        out = trace_chunk(soup, np.float32(mic), np.float32(source), directions,
+                          nreflections=nreflections)
+        t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+        for b in range(nreflections):
+            consume_row((t(out.diffuse_volume[:, b]), t(out.diffuse_position[:, b]),
+                         t(out.diffuse_time[:, b])))
+        return (t(out.image_volume), t(out.image_position), t(out.image_time),
+                t(out.image_index).long())
+
+    monkeypatch.setattr(port_render, "_trace_impl", trace)
+
+
 def _assert_within_60db(got, want):
     n = min(got.shape[-1], want.shape[-1])
     assert n > 20
@@ -192,10 +219,55 @@ def test_sorted_binning_matches_jax(rng):
 
 
 def test_hrtf_config_is_not_ported(scenes):
+    """HRTF configs render (the port once refused them; the name is kept):
+    two finite, non-silent ears. Parity with the JAX package is held in
+    tests/test_torch_hrtf.py."""
     doc = _doc("large_square", "all", False)
     doc["attenuation_model"] = {"hrtf": {"facing": [0, 0, 1], "up": [0, 1, 0]}}
-    with pytest.raises(NotImplementedError, match="HRTF attenuation is not ported yet"):
-        port_render.render_fused(
-            scenes["large_square"], port_parse_config(json.dumps(doc)),
-            random_directions(8, seed=0), device="cpu",
-        )
+    ir, info = port_render.render_fused(
+        scenes["large_square"], port_parse_config(json.dumps(doc)),
+        random_directions(8, seed=0), device="cpu",
+    )
+    assert ir.dtype == np.float32 and ir.shape[0] == 2 and ir.shape[1] > 20
+    assert np.all(np.isfinite(ir)) and np.abs(ir).max() > 0
+    assert info["chunks"] == 1
+
+
+@pytest.fixture(scope="module")
+def vault(assets_dir):
+    return load_scene(
+        str(assets_dir / "test_models" / "vault.obj"),
+        str(assets_dir / "materials" / "vault.json"),
+    )
+
+
+def test_vault_render_matches_jax(vault, assets_dir):
+    """The headline demo's scene, materials and speakers (vault.json) at a
+    few hundred rays and a few reflections, output_mode all, trims on."""
+    doc = json.loads((assets_dir / "configs" / "vault.json").read_text())
+    doc.update(rays=300, reflections=6, sample_rate=16000, bit_depth=16, seed=3)
+    assert doc["output_mode"] == "all" and "speakers" in doc["attenuation_model"]
+    text = json.dumps(doc)
+    dirs = random_directions(doc["rays"], seed=3)
+    want, winfo = jax_render.render_fused(vault, jax_parse_config(text), dirs)
+    got, ginfo = port_render.render_fused(
+        vault, port_parse_config(text), dirs, device="cpu"
+    )
+    assert np.all(np.isfinite(got))
+    _assert_within_60db(got.astype(np.float64), np.asarray(want, np.float64))
+    assert ginfo["predelay"] == pytest.approx(winfo["predelay"], rel=1e-6, abs=1e-9)
+
+
+@pytest.mark.parametrize("filt", ["twopass", "onepass"])
+@pytest.mark.parametrize("trims", [True, False])
+def test_biquad_render_matches_jax(scenes, filt, trims):
+    """IRs through the biquad filter banks (stonehenge.json and
+    config_hrtf.json use twopass), not only their filter parameters."""
+    doc = _doc("large_square", "all", trims)
+    doc["filter"] = filt
+    text = json.dumps(doc)
+    dirs = random_directions(128, seed=3)
+    scene = scenes["large_square"]
+    want, _ = jax_render.render_fused(scene, jax_parse_config(text), dirs)
+    got, _ = port_render.render_fused(scene, port_parse_config(text), dirs, device="cpu")
+    _assert_within_60db(got.astype(np.float64), np.asarray(want, np.float64))
