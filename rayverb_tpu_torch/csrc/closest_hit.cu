@@ -57,8 +57,7 @@
 //   3. Each group walks the blocks near to far (the order table, made on
 //      the card by closest_hit_order below), so the first wall's best_t
 //      slab-culls the blocks behind it. The table is (groups x nblocks)
-//      int32; past 29,056 blocks its sort keys leave shared memory for a
-//      scratch of twice that size in device memory.
+//      int32.
 //   4. A thread block stages one 128-row triangle tile at a time in shared
 //      memory (float4 loads, rows padded to 20 floats so that the 4 rows a
 //      ray's threads read at once fall in distinct banks); a tile that no
@@ -91,9 +90,8 @@ constexpr int kStride = 20;
 constexpr int kUnroll = 4;        // rows per thread and step of the row loop
 constexpr float kEps = 1e-4f;     // rayverb_tpu_torch.constants.EPSILON
 constexpr float kSlack = 1.0f + 0x1p-20f;
-// threads of an order thread block: one warp while the sort is short, more
-// for large tables
-constexpr int kOrderThreadsMax = 256;
+// groups (warps) of an order thread block, at most
+constexpr int kOrderWarpsMax = 8;
 
 __device__ __forceinline__ void slab_axis(float o, float dv, float iv,
                                           float lo, float hi, float& tn,
@@ -267,34 +265,119 @@ __global__ void closest_hit_unpack(const unsigned long long* __restrict__ keys,
   best_i[i] = lo == 0xFFFFFFFFu ? -1 : (int)lo;
 }
 
-// One thread block per group of kRays rays: the group's order row. The
-// group's first live ray (t_max > 0; the first row of a dead group) ranks
-// every block by where its line enters the block's AABB (0 from inside,
-// +inf when it misses), key = rank bits * nblocks + block index, and a
-// bitonic sort of the keys gives the row: in shared memory, or, for a
-// table whose keys do not fit there, in the group's row of `spill` in
-// device memory. Written operation for operation as
-// intersect.py::block_order, its plain version. nblocks is a power of two
-// (build_sweep_table rounds it up to one); blockDim.x a multiple of kRays.
-__global__ void __launch_bounds__(kOrderThreadsMax)
+// The near-to-far block order of each group of kRays rays: one warp per
+// group, blockDim.x / 32 groups per thread block. Replaces the order table
+// that closest_hit_pallas computes with XLA
+// (rayverb_tpu/ops/intersect_pallas.py:604-646); its plain version is
+// intersect.py::block_order, which this kernel equals bit for bit.
+//
+// The group's first live ray (t_max > 0; the first row of a dead group)
+// ranks every block by where its line enters the block's AABB (0 from
+// inside, +inf when it misses), key = rank bits * nblocks + block index,
+// and the row is the keys in ascending order. Every key of rank +inf is
+// larger than every finite one and those keys order by block index, so
+// the row is the k finite-rank keys sorted, then the +inf blocks in
+// ascending index. The kernel sorts only those k keys: the blocks the line
+// meets, 0-37 of the hall's 1,024 per group and 8-11 on average on the
+// north star's batches (chip_smoke.py prints k).
+//
+// What bounds it on the H100: the (groups x nblocks) int32 row written to
+// device memory (128 MB at 1 M rays x 1,024 blocks, 0.040 ms at 3.35
+// TB/s), then one slab test per (group, block) (~40 FP32 operations,
+// ~0.02 ms at 67 TFLOP/s). What the design does about it:
+//   1. One warp per group and no thread-block barrier: the representative
+//      is found with a ballot, the warps of a thread block run apart.
+//   2. Lane l ranks blocks l, l + 32, ...: the AABBs are read coalesced
+//      through the read-only path (24 of their 32 bytes), and the warps of
+//      an SM walk them in the same order, so that L1 can serve them.
+//   3. The finite keys are compacted by ballot and popc prefix sums into
+//      the warp's key buffer; one bit per block (the finite mask) places
+//      each +inf block at k + (its index - finite blocks below it), which
+//      a second pass writes, coalesced, once k is known.
+//   4. k <= 32: a bitonic sort in registers across the warp (shuffles,
+//      padded with all-ones keys). Larger k: a bitonic sort of the next
+//      power of two in the key buffer, separated by __syncwarp only.
+//   5. The key buffer holds nblocks keys in shared memory, so no k
+//      overflows it; only a table whose buffer does not fit in shared
+//      memory (intersect_cuda.order_launch: past ~28,600 blocks) sorts in
+//      a device-memory scratch of (groups, nblocks) keys instead.
+// k is data-dependent and never read by the host: each warp takes its own
+// path.
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr unsigned kInfBits = 0x7F800000u;  // float bits of +inf
+
+// 32-bit words of a warp's finite mask, in whole 8-byte units
+__host__ __device__ __forceinline__ size_t order_mask_units(int nblocks) {
+  return ((size_t)(nblocks + 31) / 32 + 1) / 2;
+}
+
+// shared memory of one warp, in 8-byte units: the key buffer (none when
+// the keys go to device memory), then the finite mask
+__host__ __device__ __forceinline__ size_t order_warp_units(int nblocks,
+                                                            bool spill) {
+  return (spill ? 0 : (size_t)nblocks) + order_mask_units(nblocks);
+}
+
+// ascending bitonic sort of one key per lane
+__device__ __forceinline__ unsigned long long warp_sort32(
+    unsigned long long v, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(kFull, v, j);
+      // the lower lane of a pair keeps the smaller key in an ascending run
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      v = keep_min ? min(v, other) : max(v, other);
+    }
+  }
+  return v;
+}
+
+// ascending bitonic sort of keys[0, p) by one warp, p a power of two >= 64;
+// each lane takes pairs q = lane, lane + 32, ... of a stage: i is q with a
+// zero bit inserted at j, its partner i | j
+__device__ void warp_sort_buffer(unsigned long long* keys, int p, int lane) {
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int q = lane; q < p / 2; q += 32) {
+        const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+        const unsigned long long a = keys[i];
+        const unsigned long long c = keys[i | j];
+        if ((a > c) == ((i & k) == 0)) {
+          keys[i] = c;
+          keys[i | j] = a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kOrderWarpsMax * 32)
 closest_hit_order(const float* __restrict__ origins,
                   const float* __restrict__ dirs,
                   const float* __restrict__ t_max,
-                  const float* __restrict__ aabb, int m, int nblocks,
-                  int* __restrict__ order, long long* spill) {
-  extern __shared__ long long shared_keys[];
-  __shared__ int first;
-  const int group = blockIdx.x;
-  long long* keys =
-      spill != nullptr ? spill + (size_t)group * nblocks : shared_keys;
-  if (threadIdx.x == 0) first = kRays;
-  __syncthreads();
-  const int ray = group * kRays + threadIdx.x;
-  if (threadIdx.x < kRays && ray < m && t_max[ray] > 0.f) {
-    atomicMin(&first, (int)threadIdx.x);
-  }
-  __syncthreads();
-  const int rep = min(group * kRays + (first == kRays ? 0 : first), m - 1);
+                  const float4* __restrict__ aabb, int m, int nblocks,
+                  int* __restrict__ order, unsigned long long* spill) {
+  extern __shared__ unsigned long long order_smem[];
+  const int lane = threadIdx.x & 31;
+  const int group = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (group >= (m + kRays - 1) / kRays) return;  // whole warps
+  const unsigned below = (1u << lane) - 1u;  // lanes under this one
+  const int words = (nblocks + 31) / 32;
+  unsigned long long* own =
+      order_smem +
+      (threadIdx.x >> 5) * order_warp_units(nblocks, spill != nullptr);
+  unsigned long long* keys =
+      spill != nullptr ? spill + (size_t)group * nblocks : own;
+  unsigned* finite_mask = reinterpret_cast<unsigned*>(
+      own + (spill != nullptr ? 0 : nblocks));
+
+  const int ray = group * kRays + lane;
+  const unsigned live = __ballot_sync(kFull, ray < m && t_max[ray] > 0.f);
+  const int rep =
+      min(group * kRays + (live != 0u ? __ffs(live) - 1 : 0), m - 1);
   const float ox = origins[3 * rep + 0];
   const float oy = origins[3 * rep + 1];
   const float oz = origins[3 * rep + 2];
@@ -304,39 +387,69 @@ closest_hit_order(const float* __restrict__ origins,
   const float ivx = 1.0f / dx;
   const float ivy = 1.0f / dy;
   const float ivz = 1.0f / dz;
-  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
-    const float* box = aabb + 8 * b;
-    float tnx, tfx, tny, tfy, tnz, tfz;
-    slab_axis(ox, dx, ivx, box[0], box[3], tnx, tfx);
-    slab_axis(oy, dy, ivy, box[1], box[4], tny, tfy);
-    slab_axis(oz, dz, ivz, box[2], box[5], tnz, tfz);
-    const float tn = fmaxf(fmaxf(tnx, tny), tnz);
-    const float tf = fminf(fminf(tfx, tfy), tfz);
-    const float rank = (tf >= fmaxf(tn, kEps)) ? fmaxf(tn, 0.f) : INFINITY;
-    // non-negative float bits order as the floats do (& clears -0.0's sign)
-    const int bits = __float_as_int(rank) & 0x7FFFFFFF;
-    keys[b] = (long long)bits * nblocks + b;
-  }
-  __syncthreads();
-  for (int k = 2; k <= nblocks; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < nblocks; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const long long a = keys[i];
-          const long long c = keys[ixj];
-          if ((a > c) == ((i & k) == 0)) {
-            keys[i] = c;
-            keys[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
+
+  // pass 1: rank, compact the finite keys, keep the finite mask
+  unsigned k = 0;
+#pragma unroll 4
+  for (int w = 0; w < words; ++w) {
+    const int b = 32 * w + lane;
+    unsigned bits = kInfBits;
+    if (b < nblocks) {
+      // box = (lo x, lo y, lo z, hi x | hi y, hi z, pad, pad)
+      const float4 a = __ldg(aabb + 2 * b);
+      const float2 c =
+          __ldg(reinterpret_cast<const float2*>(aabb + 2 * b + 1));
+      float tnx, tfx, tny, tfy, tnz, tfz;
+      slab_axis(ox, dx, ivx, a.x, a.w, tnx, tfx);
+      slab_axis(oy, dy, ivy, a.y, c.x, tny, tfy);
+      slab_axis(oz, dz, ivz, a.z, c.y, tnz, tfz);
+      const float tn = fmaxf(fmaxf(tnx, tny), tnz);
+      const float tf = fminf(fminf(tfx, tfy), tfz);
+      const float rank = (tf >= fmaxf(tn, kEps)) ? fmaxf(tn, 0.f) : INFINITY;
+      // non-negative float bits order as the floats do (& clears -0.0's sign)
+      bits = __float_as_uint(rank) & 0x7FFFFFFFu;
     }
+    // partition on the bits: a met block whose rank overflowed to +inf
+    // ties with the misses and goes by index, as the full sort puts it
+    const bool finite = bits != kInfBits;
+    const unsigned ballot = __ballot_sync(kFull, finite);
+    if (finite) {
+      keys[k + __popc(ballot & below)] =
+          (unsigned long long)bits * (unsigned)nblocks + (unsigned)b;
+    }
+    if (lane == 0) finite_mask[w] = ballot;
+    k += __popc(ballot);
   }
+  __syncwarp();
+
+  // pass 2: the +inf blocks in ascending index after the k finite ones
   int* row = order + (size_t)group * nblocks;
-  for (int i = threadIdx.x; i < nblocks; i += blockDim.x) {
-    row[i] = (int)(keys[i] % nblocks);
+  unsigned finite_below = 0;  // finite blocks in the words before w
+  for (int w = 0; w < words; ++w) {
+    const unsigned ballot = finite_mask[w];
+    const int b = 32 * w + lane;
+    if (b < nblocks && ((ballot >> lane) & 1u) == 0u) {
+      row[k + b - (finite_below + __popc(ballot & below))] = b;
+    }
+    finite_below += __popc(ballot);
+  }
+
+  // the k finite keys, sorted; key % nblocks is the block (a power of two)
+  const unsigned long long index_mask = (unsigned long long)(nblocks - 1);
+  if (k == 0) return;
+  if (k <= 32) {
+    unsigned long long v = lane < (int)k ? keys[lane] : ~0ull;
+    v = warp_sort32(v, lane);
+    if (lane < (int)k) row[lane] = (int)(v & index_mask);
+    return;
+  }
+  int p = 64;
+  while (p < (int)k) p <<= 1;  // <= nblocks: the buffer holds it
+  for (int i = (int)k + lane; i < p; i += 32) keys[i] = ~0ull;
+  __syncwarp();
+  warp_sort_buffer(keys, p, lane);
+  for (int i = lane; i < (int)k; i += 32) {
+    row[i] = (int)(keys[i] & index_mask);
   }
 }
 
@@ -344,29 +457,36 @@ closest_hit_order(const float* __restrict__ origins,
 
 // C interface for ctypes: the near-to-far block order of each group of 32
 // rays (closest_hit_order). origins and dirs (m, 3), t_max (m,), aabb
-// (nblocks, 8) float32, order (ceil(m / 32), nblocks) int32; nblocks a
-// power of two. spill is null, and the keys are sorted in shared memory,
-// or (ceil(m / 32), nblocks) 64-bit scratch in device memory for tables
-// whose keys do not fit there. Enqueues on `stream` and returns the first
-// CUDA error of the enqueue (0 if none).
+// (nblocks, 8) float32 (16-byte aligned), order (ceil(m / 32), nblocks)
+// int32; nblocks a power of two. `warps` groups per thread block and
+// `smem` bytes of dynamic shared memory, as intersect_cuda.order_launch
+// chooses them; spill is null, and each warp sorts its keys in shared
+// memory, or (ceil(m / 32), nblocks) 64-bit scratch in device memory for
+// tables whose keys do not fit there. Returns cudaErrorInvalidValue
+// unless smem is warps x one warp's layout, else enqueues on `stream` and
+// returns the first CUDA error of the enqueue (0 if none).
 extern "C" int rv_block_order(const void* origins, const void* dirs,
                               const void* t_max, const void* aabb, int m,
-                              int nblocks, void* order, void* spill,
-                              void* stream) {
+                              int nblocks, int warps, int smem, void* order,
+                              void* spill, void* stream) {
   if (m <= 0) return 0;
-  const size_t smem =
-      spill != nullptr ? 0 : sizeof(long long) * (size_t)nblocks;
+  if (nblocks <= 0 || (nblocks & (nblocks - 1)) != 0 || warps < 1 ||
+      warps > kOrderWarpsMax || smem < 0 ||
+      (size_t)smem != 8 * (size_t)warps *
+                          order_warp_units(nblocks, spill != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        closest_hit_order, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        closest_hit_order, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int threads = nblocks <= 256 ? kRays : kOrderThreadsMax;
-  closest_hit_order<<<(m + kRays - 1) / kRays, threads, smem,
+  const int groups = (m + kRays - 1) / kRays;
+  closest_hit_order<<<(groups + warps - 1) / warps, warps * 32, smem,
                       (cudaStream_t)stream>>>(
       (const float*)origins, (const float*)dirs, (const float*)t_max,
-      (const float*)aabb, m, nblocks, (int*)order, (long long*)spill);
+      (const float4*)aabb, m, nblocks, (int*)order,
+      (unsigned long long*)spill);
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,8 @@ are intersect.closest_hit_plain and intersect.block_order.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,7 +39,7 @@ def _kernel():
         ] * 5
         sweep.restype = ctypes.c_int
         order = lib.rv_block_order
-        order.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+        order.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p
         ] * 3
         order.restype = ctypes.c_int
@@ -62,10 +64,41 @@ def _check(name, x, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-# the block-order kernel sorts a group's int64 keys in shared memory up to
-# this many blocks (the 227 KB a thread block may use on Hopper), and in a
-# device-memory scratch of (groups, nblocks) keys beyond it
-MAX_SHARED_ORDER_BLOCKS = 227 * 1024 // 8
+# the block-order kernel (closest_hit_order): groups (one warp each) per
+# thread block at most, the shared memory a thread block may use on Hopper
+# (227 KB), and the card's SMs, which the thread blocks of a small batch
+# should spread over
+ORDER_WARPS = 8
+ORDER_SMEM_MAX = 227 * 1024
+ORDER_SPREAD_SMS = 132
+
+
+class OrderLaunch(NamedTuple):
+    warps: int  # groups per thread block
+    smem: int  # dynamic shared memory per thread block, bytes
+    spill: bool  # keys in a (groups, nblocks) int64 device-memory scratch
+
+
+# cached: a vault render's order launches are host-bound, and a cache hit
+# costs the host less than the rule
+@functools.lru_cache(maxsize=1024)
+def order_launch(nblocks: int, groups: int) -> OrderLaunch:
+    """The order kernel's launch for a table of ``nblocks`` blocks and
+    ``groups`` ray groups. Each warp holds, in shared memory, a key buffer
+    of nblocks 64-bit keys and its finite mask (one bit per block, in whole
+    8-byte units); where one warp's buffer and mask do not fit, the keys go
+    to a device-memory scratch and the warp keeps only its mask. As many
+    warps per thread block as fit, at most ORDER_WARPS and at most
+    ceil(groups / ORDER_SPREAD_SMS), so that a small batch's thread blocks
+    still spread over the SMs. The kernel refuses any other shared-memory
+    size (rv_block_order)."""
+    words = -(-nblocks // 32)
+    mask = 8 * -(-words // 2)
+    spill = 8 * nblocks + mask > ORDER_SMEM_MAX
+    per_warp = mask + (0 if spill else 8 * nblocks)
+    warps = max(1, min(ORDER_WARPS, ORDER_SMEM_MAX // per_warp,
+                       -(-groups // ORDER_SPREAD_SMS)))
+    return OrderLaunch(warps, warps * per_warp, spill)
 
 
 def block_order_cuda(origins, dirs, t_max, block_aabb):
@@ -73,7 +106,7 @@ def block_order_cuda(origins, dirs, t_max, block_aabb):
     SWEEP_RAYS rays: intersect.block_order, computed by the CUDA kernel
     closest_hit_order in one launch on the current stream. The table's
     block count must be a power of two (build_sweep_table's); the tensors
-    contiguous float32 on one CUDA device."""
+    contiguous float32 on one CUDA device, the AABBs 16-byte aligned."""
     global order_launches
     if not origins.is_cuda:
         raise ValueError(
@@ -91,13 +124,17 @@ def block_order_cuda(origins, dirs, t_max, block_aabb):
     _check("block_aabb", block_aabb, (nb, 8), torch.float32, dev)
     if nb <= 0 or nb & (nb - 1):
         raise ValueError(f"block count must be a power of two, got {nb}")
+    aabb_ptr = block_aabb.data_ptr()
+    if aabb_ptr % 16:
+        raise ValueError("block_aabb must be 16-byte aligned (the kernel reads float4)")
     groups = -(-m // SWEEP_RAYS)
     order = torch.empty((groups, nb), dtype=torch.int32, device=dev)
     if m == 0:
         return order
+    launch = order_launch(nb, groups)
     spill = (
         torch.empty((groups, nb), dtype=torch.int64, device=dev)
-        if nb > MAX_SHARED_ORDER_BLOCKS
+        if launch.spill
         else None
     )
     _, fn = _kernel()
@@ -107,9 +144,11 @@ def block_order_cuda(origins, dirs, t_max, block_aabb):
             origins.data_ptr(),
             dirs.data_ptr(),
             t_max.data_ptr(),
-            block_aabb.data_ptr(),
+            aabb_ptr,
             m,
             nb,
+            launch.warps,
+            launch.smem,
             order.data_ptr(),
             None if spill is None else spill.data_ptr(),
             stream,
