@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each printed as one JSON line with its wall time:
 
   1. device   nvidia-smi's name and power limit, the CUDA device name, and
-              the nvcc build of the closest-hit kernels (with its seconds)
+              the nvcc builds of the closest-hit and biquad kernels, one
+              nvcc per source, started together (with their seconds and
+              ptxas' registers)
   2. kernel   the CUDA kernel against its plain PyTorch version on the
               vault scene, on the card: 50,000 Morton-sorted primary rays,
               the first bounce's reversed shadow rows, a ragged batch of 777
@@ -57,10 +59,32 @@ Phases, each printed as one JSON line with its wall time:
               32, 1,024 and 32,768 blocks (the last sorts its keys in device
               memory); k per group of the north star's primary, bounce and
               shadow batches
- 10. kernels  one JSON line per the port's kernel table (the sweep, the
-              block order and the unpack kernel); the device line also
-              carries the instruction counts of the sweep kernel's loops,
-              read from `cuobjdump -sass` where the toolkit has it
+ 10. biquad   the biquad scan kernel against its plain version, bit for
+              bit, on the card and on the CPU (2 channels x 8 bands x
+              16,384 samples of the vault's lowpass, forward and reverse,
+              with and without a content length); the vault's four-pass
+              bank at 524,288 samples against scipy's float64 lfilter
+              (1e-4 of peak); ms per pass, bytes and dependency bounds
+ 11. modular  the CLI with --pipeline modular on the full vault, cold and
+              warm, --stats: walls, phases, the trace's ray chunk, every
+              sweep through the sweep and order kernels and every filter
+              pass through the biquad kernel; the kernel against its plain
+              version at the main path's first pass shape (ms, plain ms)
+ 12. mod/fus  pipeline.render (scan) against render_fused on the vault's
+              directions, trim_predelay off (-60 dB; the trimmed renders
+              are compared too, not gated: the fused whole-bin predelay
+              shift is a documented deviation); the fused render with
+              RAYVERB_FINALIZE_FILTER=scan against the fft one (-60 dB)
+ 13. raw      --save-raw then --from-raw through the CLI (equal WAVs) and
+              pipeline.render against render_from_raw of its saved
+              population (bit-identical IRs), --dump-paths (one line per
+              ray in the JAX schema, equal to the trace's records), at
+              2,000 rays: host zlib and JSON set this phase's walls
+ 14. kernels  one JSON line per the port's kernel table (the sweep, the
+              block order, the unpack kernel with the card's launch floor,
+              and the biquad scan); the device line also carries the
+              instruction counts of the sweep kernel's loops, read from
+              `cuobjdump -sass` where the toolkit has it
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them. Any failure prints
@@ -197,29 +221,47 @@ def _sass_loops(lib_path):
     return {"kernel_instructions": len(instrs), "loops": loops}
 
 
-def _profiled_ms(fn, kernel, reps):
-    """Device ms per launch of the kernel whose name holds ``kernel``, over
-    ``reps`` calls of ``fn`` (one launch each) under torch.profiler: the
-    mean of the launches it reports. On the card it has reported 19 of 20,
-    19 of 22 and 0 of 5 such launches, so a session that reports fewer than
-    half is run again, up to three times, and then raises."""
+def _profiled_many(calls, reps):
+    """Device ms per launch of each kernel of ``calls``, a list of (fn,
+    name) pairs, in ONE torch.profiler session: each fn is called ``reps``
+    times (one launch of the kernel whose name holds ``name`` each), the
+    device synchronised after each call, and each kernel's time is the mean
+    of the launches the session reports. On the card it has reported 19 of
+    20, 19 of 22, 0 of 5 and 1 of 5 such launches, so a session that
+    reports fewer than half of any kernel's launches is run again, up to
+    three times, and then raises. Returns {name: ms}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn, _ in calls:
+        fn()
     torch.cuda.synchronize()
     seen = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        times = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-        if reps // 2 <= len(times) <= reps:
-            return sum(times) / len(times) / 1e3
-        seen.append(len(times))
-    raise AssertionError(f"the profiler saw {seen} {kernel} launches of {reps} per session")
+            for fn, _ in calls:
+                for _ in range(reps):
+                    fn()
+                    torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        out = {}
+        for _, name in calls:
+            times = [e.time_range.end - e.time_range.start for e in events
+                     if name in e.name]
+            if max(1, reps // 2) <= len(times) <= reps:
+                out[name] = sum(times) / len(times) / 1e3
+        if len(out) == len(calls):
+            return out
+        seen.append({name: sum(name in e.name for e in events) for _, name in calls})
+        _emit({"profiler_session_reported": seen[-1], "of": reps})
+    raise AssertionError(f"the profiler saw {seen} launches of {reps} per session")
+
+
+def _profiled_ms(fn, kernel, reps):
+    """Device ms per launch of the kernel whose name holds ``kernel``, over
+    ``reps`` calls of ``fn`` (one launch each): _profiled_many of one."""
+    return _profiled_many([(fn, kernel)], reps)[kernel]
 
 
 def _cuda_ms(fn, reps):
@@ -484,36 +526,64 @@ def _phase_kernel(ph, dev):
     return batches
 
 
-def _phase_main(ph, tmp, paths=VAULT):
-    """The port's CLI on ``paths`` (config, model, materials), cold and
-    warm: a 2-channel WAV, finite and non-silent, and every sweep through
-    the order and sweep kernels (counts reset just before each run)."""
+def _phase_main(ph, tmp, paths=VAULT, extra=()):
+    """The port's CLI on ``paths`` (config, model, materials) with the
+    flags ``extra``, cold and warm: a 2-channel WAV, finite and non-silent,
+    every sweep through the order and sweep kernels, and every filter pass
+    of the modular pipeline (``--pipeline modular``) through the biquad
+    kernel, none of the fused render's (its fft finalize); counts reset just
+    before each run and read just after. --stats' lines and the shapes of
+    the biquad launches go into each run's record."""
+    import contextlib
+    import io
+
     import numpy as np
 
     from rayverb_tpu_torch import cli
     from rayverb_tpu_torch.config.schema import load_config
     from rayverb_tpu_torch.io.audio import read_audio
-    from rayverb_tpu_torch.ops import intersect_cuda
+    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
+    from rayverb_tpu_torch.ops.filters import _band_coeffs
     from rayverb_tpu_torch.ops.trace import sweep_count
 
-    expected = sweep_count(load_config(paths[0]).reflections)
-    name = os.path.splitext(os.path.basename(paths[0]))[0]
+    cfg = load_config(paths[0])
+    expected = sweep_count(cfg.reflections)
+    modular = "modular" in extra
+    expected_biquad = (
+        len(_band_coeffs(cfg.filter, cfg.sample_rate, cfg.hipass)) if modular else 0
+    )
+    name = os.path.splitext(os.path.basename(paths[0]))[0] + ("_modular" if modular else "")
+    real_scan = biquad_cuda.biquad_scan_cuda
     runs = []
     for label in ("cold", "warm"):
         out = os.path.join(tmp, f"{name}_{label}.wav")
-        intersect_cuda.launches = 0
-        intersect_cuda.order_launches = 0
-        t0 = time.perf_counter()
-        rc = cli.main([*paths, out, "--stats", "--device", "cuda"])
-        wall = time.perf_counter() - t0
-        launches = intersect_cuda.launches
-        order_launches = intersect_cuda.order_launches
+        shapes = []
+
+        def record(data, coeffs, **kw):
+            shapes.append([list(data.shape), kw.get("content_len"), bool(kw.get("reverse"))])
+            return real_scan(data, coeffs, **kw)
+
+        stderr = io.StringIO()
+        with mock.patch.object(biquad_cuda, "biquad_scan_cuda", record), \
+                contextlib.redirect_stderr(stderr):
+            intersect_cuda.launches = 0
+            intersect_cuda.order_launches = 0
+            biquad_cuda.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main([*paths, out, "--stats", "--device", "cuda", *extra])
+            wall = time.perf_counter() - t0
+            launches = intersect_cuda.launches
+            order_launches = intersect_cuda.order_launches
+            biquad_launches = biquad_cuda.launches
+        sys.stderr.write(stderr.getvalue())
         if rc != 0:
             raise AssertionError(f"{label} CLI run exited {rc}")
         data, sr, bits = read_audio(out)
         peak = float(np.abs(data).max()) if data.size else 0.0
         run = {"run": label, "wall_s": wall, "launches": launches,
-               "order_launches": order_launches,
+               "order_launches": order_launches, "biquad_launches": biquad_launches,
+               "biquad_shapes": shapes,
+               "stats": stderr.getvalue().strip().splitlines(),
                "channels": int(data.shape[0]), "samples": int(data.shape[1]),
                "finite": bool(np.all(np.isfinite(data))),
                "sample_rate": sr, "bit_depth": bits, "peak": peak}
@@ -528,8 +598,14 @@ def _phase_main(ph, tmp, paths=VAULT):
                 f"the order kernel {order_launches} times, expected "
                 f"{expected} sweeps"
             )
+        if biquad_launches != expected_biquad:
+            raise AssertionError(
+                f"{label} run launched the biquad kernel {biquad_launches} times, "
+                f"expected {expected_biquad}"
+            )
     ph.out["runs"] = runs
     ph.out["expected_sweeps"] = expected
+    ph.out["expected_biquad_launches"] = expected_biquad
     return runs
 
 
@@ -789,7 +865,7 @@ def _phase_north_star(ph, dev, scene):
     import torch
 
     from rayverb_tpu_torch.config.schema import parse_config
-    from rayverb_tpu_torch.ops import intersect_cuda
+    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
     from rayverb_tpu_torch.ops.intersect import block_order, soup_from_scene
     from rayverb_tpu_torch.ops.order_check import order_keys
     from rayverb_tpu_torch.ops.render import render_fused
@@ -804,9 +880,11 @@ def _phase_north_star(ph, dev, scene):
             torch.cuda.reset_peak_memory_stats(dev)
             intersect_cuda.launches = 0
             intersect_cuda.order_launches = 0
+            biquad_cuda.launches = 0
             t0 = time.perf_counter()
             ir, info = render_fused(scene, cfg, dirs, device=dev, stats=True)
             wall = time.perf_counter() - t0
+            biquad_launches = biquad_cuda.launches
             run = {
                 "run": label, "wall_s": wall,
                 "trace_bin_s": info["timings"]["trace_bin"],
@@ -821,6 +899,8 @@ def _phase_north_star(ph, dev, scene):
                 "ray_bounces_per_s": info["ray_bounces_per_s"],
                 "launches": intersect_cuda.launches,
                 "order_launches": intersect_cuda.order_launches,
+                "biquad_launches": biquad_launches,
+                "filter_method": info["filter_method"],
                 "shape": list(ir.shape),
             }
             runs.append(run)
@@ -829,6 +909,9 @@ def _phase_north_star(ph, dev, scene):
                 raise AssertionError(f"north-star IR is not stereo, finite and non-silent: {run}")
             if run["launches"] == 0 or run["order_launches"] == 0:
                 raise AssertionError(f"north star ran no kernel: {run}")
+            # its finalize is the fft bank: the biquad kernel has no launch
+            if run["filter_method"] != "fft" or run["biquad_launches"] != 0:
+                raise AssertionError(f"north star's finalize is not the fft bank: {run}")
     # the order kernel's time per launch at this table: the 1M primary rays
     soup = soup_from_scene(scene, device=dev)
     m = cfg.rays
@@ -838,7 +921,7 @@ def _phase_north_star(ph, dev, scene):
     order_args = (o, d, tm, soup.block_aabb)
     order_ms = _cuda_ms(lambda: intersect_cuda.block_order_cuda(*order_args), 5)
     order_device_ms = _profiled_ms(
-        lambda: intersect_cuda.block_order_cuda(*order_args), "closest_hit_order", 5)
+        lambda: intersect_cuda.block_order_cuda(*order_args), "closest_hit_order", 20)
     order = intersect_cuda.block_order_cuda(*order_args)
     if not torch.equal(order, block_order(*order_args)):
         raise AssertionError("the order kernel differs from block_order at 1M rays")
@@ -945,16 +1028,22 @@ def _phase_order(ph, dev, scene):
 def _unpack_record(soup, args, order, slices, m):
     """The unpack kernel (closest_hit_unpack, launched by the same wrapper
     call as the sweep) at one batch: device ms per launch from
-    torch.profiler, its plain version's ms (unpack_keys of the merged keys
-    and the seed), and its bound by bytes (keys and t_max read, best_t and
-    best_i written)."""
+    torch.profiler, beside the card's floor for one launch (a 1-element
+    zero_() in the same session), its plain version's ms (unpack_keys of
+    the merged keys and the seed), and its bound by bytes (keys and t_max
+    read, best_t and best_i written)."""
     import torch
 
     from rayverb_tpu_torch.ops import intersect_cuda
     from rayverb_tpu_torch.ops.intersect import pack_keys, unpack_keys
 
-    ms = _profiled_ms(lambda: intersect_cuda.closest_hit_cuda(*args, order, slices),
-                      "closest_hit_unpack", 20)
+    # the card's floor for one launch, in the same session: a 1-element
+    # zero_() (PyTorch's fill kernel)
+    one = torch.zeros((1,), device=args[0].device)
+    prof = _profiled_many(
+        [(lambda: intersect_cuda.closest_hit_cuda(*args, order, slices), "closest_hit_unpack"),
+         (one.zero_, "FillFunctor")], 20)
+    ms = prof["closest_hit_unpack"]
     t, i = intersect_cuda.closest_hit_cuda(*args, order, slices)
     keys = pack_keys(t, i)
     seed = pack_keys(args[4], torch.full_like(i, -1))
@@ -965,10 +1054,369 @@ def _unpack_record(soup, args, order, slices, m):
         raise AssertionError(f"unpack: the plain version differs in {mismatch} rows")
     return {
         "ms": ms,
+        "launch_floor_ms": prof["FillFunctor"],
         "plain_ms": _cuda_ms(lambda: unpack_keys(torch.minimum(keys, seed)), 20),
         "bound_ms": 20 * m / HBM_BYTES_PER_S * 1e3,
         "mismatch": mismatch,
     }
+
+
+# the biquad kernel's checks (biquad_vs_plain): series of the vault's bank
+# (2 channels x 8 bands) at BIQUAD_CHECK_SAMPLES samples, kernel against
+# plain bit for bit, with a content length of BIQUAD_CHECK_CONTENT; and at
+# BIQUAD_FULL_SAMPLES (the vault's histogram_length, the longest series its
+# renders give the scan) against scipy's float64 lfilter
+BIQUAD_CHECK_SAMPLES = 16_384
+BIQUAD_CHECK_CONTENT = 12_345
+BIQUAD_FULL_SAMPLES = 524_288
+# the full-length check's tolerance, relative to the float64 reference's
+# peak: the float32 state drifts from float64 over the series, and the JAX
+# scan is validated against scipy to ~1e-4 (rayverb_tpu/ops/filters.py:161)
+BIQUAD_FULL_TOL = 1e-4
+# cycles per sample of the recurrence's dependent chain (a multiply, a
+# subtract and an add from one output to the next, ~4 cycles each)
+BIQUAD_CHAIN_CYCLES = 12
+# FP32 operations per sample of one pass (5 multiplies, 4 adds/subtracts)
+BIQUAD_FLOPS_PER_SAMPLE = 9
+# the raw_and_dump phase's population: the vault at this many rays
+RAW_DUMP_RAYS = 2_000
+
+
+def _sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30, check=True,
+    )
+    return float(proc.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _biquad_bounds(series, samples):
+    """Least times of one biquad pass over (series, samples): bytes (read
+    once, written once) over HBM bandwidth, FP32 operations over the FP32
+    peak, and the dependent chain of one series at the card's maximum
+    clock (the bound of a one-thread-per-series recurrence)."""
+    bytes_ms = 2 * 4 * series * samples / HBM_BYTES_PER_S * 1e3
+    ops_ms = BIQUAD_FLOPS_PER_SAMPLE * series * samples / FP32_PEAK * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes_bound_ms": bytes_ms,
+        "ops_bound_ms": ops_ms,
+        "dependency_bound_ms": samples * BIQUAD_CHAIN_CYCLES / _sm_clock_hz() * 1e3,
+    }
+
+
+def _vault_scan_passes(dev, channels=2):
+    """The vault's Linkwitz-Riley passes as the scan finalize runs them:
+    [(coeffs (channels * 8, 5) float32 on dev, reverse)], the direction
+    the cumulative parity of the bank's reversals."""
+    import numpy as np
+    import torch
+
+    from rayverb_tpu_torch.config.schema import load_config
+    from rayverb_tpu_torch.ops.filters import _band_coeffs
+
+    cfg = load_config(VAULT[0])
+    out, orientation = [], False
+    for coeffs, flip in _band_coeffs(cfg.filter, cfg.sample_rate, cfg.hipass):
+        orientation ^= flip
+        c = np.tile(coeffs.astype(np.float32), (channels, 1))
+        out.append((torch.from_numpy(c).to(dev), orientation))
+    return out
+
+
+def _band_signals(rng, series, samples):
+    """Histogram-like band signals: ~5 % of the samples carry an arrival,
+    decaying over the length."""
+    import numpy as np
+
+    x = rng.standard_normal((series, samples)) * np.exp(-np.arange(samples) / (samples / 5))
+    return np.where(rng.random((series, samples)) < 0.05, x, 0.0).astype(np.float32)
+
+
+def _bit_mismatch(a, b):
+    import torch
+
+    return int((a.view(torch.int32) != b.cpu().to(a.device).view(torch.int32)).sum())
+
+
+def _phase_biquad(ph, dev):
+    """The biquad_scan kernel against its plain version, bit for bit, on
+    the card and on the CPU: the vault's lowpass forward and reverse, with
+    and without a content length (the samples after it +0); then the whole
+    four-pass bank at the vault's length against scipy's float64 lfilter;
+    ms per pass, bounds and registers."""
+    import numpy as np
+    import scipy.signal as sps
+    import torch
+
+    from rayverb_tpu_torch import cuda_build
+    from rayverb_tpu_torch.ops import biquad_cuda
+    from rayverb_tpu_torch.ops.filters import biquad_onepass_plain
+
+    rng = np.random.default_rng(11)
+    passes = _vault_scan_passes(dev)
+    series = passes[0][0].shape[0]
+    x = torch.from_numpy(_band_signals(rng, series, BIQUAD_CHECK_SAMPLES)).to(dev)
+    cases = []
+    for coeffs, reverse in passes[:2]:
+        for content in (None, BIQUAD_CHECK_CONTENT):
+            kern = biquad_cuda.biquad_scan_cuda(x, coeffs, reverse=reverse, content_len=content)
+            plain = biquad_onepass_plain(x, coeffs, reverse=reverse, content_len=content)
+            cpu = biquad_onepass_plain(x.cpu(), coeffs.cpu(), reverse=reverse,
+                                       content_len=content)
+            torch.cuda.synchronize()
+            tail = kern[:, BIQUAD_CHECK_SAMPLES if content is None else content:]
+            cases.append({
+                "reverse": reverse, "content_len": content,
+                "mismatch": _bit_mismatch(kern, plain),
+                "mismatch_cpu": _bit_mismatch(kern, cpu),
+                "tail_not_plus_zero": int((tail.view(torch.int32) != 0).sum()),
+                "max_abs_err": float((kern - plain).abs().max()),
+                "peak": float(plain.abs().max()),
+            })
+    ph.out["cases"] = cases
+    if any(c["mismatch"] or c["mismatch_cpu"] or c["tail_not_plus_zero"] for c in cases):
+        raise AssertionError(f"biquad kernel != plain: {cases}")
+    # the whole bank at the vault's length against float64 lfilter
+    full = _band_signals(rng, series, BIQUAD_FULL_SAMPLES)
+    out = torch.from_numpy(full).to(dev)
+    ref = full.astype(np.float64)
+    for coeffs, reverse in passes:
+        out = biquad_cuda.biquad_scan_cuda(out, coeffs, reverse=reverse)
+        for s, (b0, b1, b2, a1, a2) in enumerate(coeffs.cpu().numpy().astype(np.float64)):
+            sig = ref[s, ::-1] if reverse else ref[s]
+            y = sps.lfilter([b0, b1, b2], [1.0, a1, a2], sig)
+            ref[s] = y[::-1] if reverse else y
+    got = out.cpu().numpy().astype(np.float64)
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    ph.out["full_length"] = {"samples": BIQUAD_FULL_SAMPLES, "series": series,
+                             "passes": len(passes), "max_err_over_peak": err,
+                             "tolerance": BIQUAD_FULL_TOL}
+    if not np.isfinite(err) or err >= BIQUAD_FULL_TOL:
+        raise AssertionError(f"biquad kernel differs from float64 lfilter: {err}")
+    xf = torch.from_numpy(full).to(dev)
+    coeffs = passes[0][0]
+    ph.out["ms_per_pass"] = {
+        "forward": _cuda_ms(lambda: biquad_cuda.biquad_scan_cuda(xf, coeffs), 10),
+        "reverse": _cuda_ms(lambda: biquad_cuda.biquad_scan_cuda(xf, coeffs, reverse=True), 10),
+    }
+    ph.out["bounds"] = _biquad_bounds(series, BIQUAD_FULL_SAMPLES)
+    log = cuda_build.build_info["biquad_scan"]["log"]
+    ph.out["ptxas"] = [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln]
+    return ph.out
+
+
+def _biquad_at_shape(dev, shape, reverse):
+    """The kernel and its plain version at a pass shape of the main path:
+    (S, T) random band signals, the vault's first coefficients; bit for
+    bit, with the kernel's ms (CUDA events) and the plain version's (one
+    call)."""
+    import numpy as np
+    import torch
+
+    from rayverb_tpu_torch.ops import biquad_cuda
+    from rayverb_tpu_torch.ops.filters import biquad_onepass_plain
+
+    s, t = shape
+    coeffs = _vault_scan_passes(dev, channels=s // 8)[0][0]
+    x = torch.from_numpy(_band_signals(np.random.default_rng(5), s, t)).to(dev)
+    kern = biquad_cuda.biquad_scan_cuda(x, coeffs, reverse=reverse)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = biquad_onepass_plain(x, coeffs, reverse=reverse)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"shape": [s, t], "reverse": reverse, "mismatch": _bit_mismatch(kern, plain),
+           "max_abs_err": float((kern - plain).abs().max()),
+           "ms": _cuda_ms(lambda: biquad_cuda.biquad_scan_cuda(x, coeffs, reverse=reverse), 10),
+           "plain_ms": plain_ms, **_biquad_bounds(s, t)}
+    if rec["mismatch"]:
+        raise AssertionError(f"biquad kernel != plain at the main path's shape: {rec}")
+    return rec
+
+
+def _phase_modular_main(ph, dev, tmp):
+    """The CLI with --pipeline modular on the full vault, cold and warm
+    (_phase_main), the chunk its dense trace chose (trace.trace's plan),
+    and the biquad kernel against its plain version at the shape of the
+    main path's first filter pass."""
+    from rayverb_tpu_torch.config.schema import load_config
+    from rayverb_tpu_torch.ops.intersect import soup_from_scene
+    from rayverb_tpu_torch.ops.render import choose_ray_chunk, memory_budget
+    from rayverb_tpu_torch.ops.trace import trace_bytes
+    from rayverb_tpu_torch.scene import load_scene
+
+    runs = _phase_main(ph, tmp, VAULT, extra=("--pipeline", "modular"))
+    cfg = load_config(VAULT[0])
+    nblocks = soup_from_scene(load_scene(VAULT[1], VAULT[2]), device=dev).block_aabb.shape[0]
+    chunk = choose_ray_chunk(cfg.rays, cfg.reflections, nblocks, None,
+                             memory_budget(dev), plan=trace_bytes)
+    ph.out["ray_chunk"] = chunk
+    ph.out["trace_bytes_planned"] = trace_bytes(chunk, cfg.reflections, nblocks)
+    shape, _, reverse = runs[-1]["biquad_shapes"][0]
+    ph.out["biquad_at_main_shape"] = _biquad_at_shape(dev, shape, reverse)
+    return runs
+
+
+def _phase_modular_vs_fused(ph, dev):
+    """pipeline.render (scan filters) against render_fused on the vault's
+    directions, each gated at -60 dB (_ir_error), as the JAX package's
+    tests/test_render_fused.py holds its two paths:
+
+    - the vault config with trim_predelay off: sample for sample;
+    - the vault config with both trims on and the causal one-pass biquad:
+      the fused render shifts the predelay by whole bins (a documented
+      deviation), so it is held to the untrimmed modular render advanced
+      by round(predelay * sr) samples (test_render_fused._compare_predelay).
+
+    That shift contract is exact only for a causal filter: with the vault's
+    zero-phase Linkwitz-Riley bank the fused render cuts the reverse passes'
+    ringing before the first arrival at bin 0, so the Linkwitz-Riley pair
+    with trim_predelay on is printed as a reading, not gated. Then the fused
+    render with RAYVERB_FINALIZE_FILTER=scan against the fused fft render,
+    vault config as it is."""
+    import numpy as np
+
+    from rayverb_tpu_torch import pipeline
+    from rayverb_tpu_torch.config.schema import parse_config
+    from rayverb_tpu_torch.ops import biquad_cuda
+    from rayverb_tpu_torch.ops.render import render_fused
+    from rayverb_tpu_torch.scene import load_scene
+    from rayverb_tpu_torch.utils.directions import random_directions
+
+    with open(VAULT[0]) as f:
+        doc = json.load(f)
+    cfg = parse_config(json.dumps(doc))
+    scene = load_scene(VAULT[1], VAULT[2])
+    dirs = random_directions(cfg.rays, seed=cfg.seed)
+
+    def pair(overrides):
+        """(fused with trim_predelay as the vault, untrimmed modular advanced
+        by the fused render's predelay shift when it is on)"""
+        trimmed = parse_config(json.dumps(dict(doc, **overrides)))
+        nopd = parse_config(json.dumps(dict(doc, **dict(overrides, trim_predelay=False))))
+        fused, info = render_fused(scene, trimmed, dirs, device=dev)
+        modular = pipeline.render(nopd, scene, directions=dirs, device=dev).channels
+        shift = int(np.floor(info["predelay"] * trimmed.sample_rate + 0.5))
+        return fused, modular[:, shift:], shift
+
+    def beyond(a, b):
+        n = min(a.shape[-1], b.shape[-1])
+        return max(float(np.abs(a[:, n:]).max(initial=0.0)),
+                   float(np.abs(b[:, n:]).max(initial=0.0))) / float(np.abs(b).max())
+
+    fused_nopd, modular_nopd, _ = pair({"trim_predelay": False})
+    err = _ir_error(modular_nopd, fused_nopd)
+    fused_1p, modular_1p, shift_1p = pair({"filter": "onepass"})
+    err_1p = _ir_error(modular_1p, fused_1p)
+    fused, _ = render_fused(scene, cfg, dirs, device=dev)
+    modular = pipeline.render(cfg, scene, directions=dirs, device=dev).channels
+    with mock.patch.dict(os.environ, RAYVERB_FINALIZE_FILTER="scan"):
+        biquad_cuda.launches = 0
+        fused_scan, scan_info = render_fused(scene, cfg, dirs, device=dev)
+        scan_launches = biquad_cuda.launches
+    scan_err = _ir_error(fused_scan, fused)
+    ph.out.update({
+        "shape_fused_no_predelay": list(fused_nopd.shape),
+        "shape_modular_no_predelay": list(modular_nopd.shape),
+        "max_err_over_peak": err,
+        "beyond_common_over_peak": beyond(modular_nopd, fused_nopd),
+        "onepass_trimmed_shift_samples": shift_1p,
+        "shape_fused_onepass_trimmed": list(fused_1p.shape),
+        "shape_modular_onepass_untrimmed_shifted": list(modular_1p.shape),
+        "onepass_trimmed_max_err_over_peak": err_1p,
+        "onepass_trimmed_beyond_common_over_peak": beyond(modular_1p, fused_1p),
+        "shape_fused": list(fused.shape), "shape_modular": list(modular.shape),
+        "lr_trimmed_max_err_over_peak_not_gated": _ir_error(modular, fused),
+        "lr_trimmed_vs_untrimmed_shifted_max_err_over_peak_not_gated":
+            _ir_error(modular_nopd[:, shift_1p:], fused),
+        "fused_scan_filter_method": scan_info["filter_method"],
+        "fused_scan_biquad_launches": scan_launches,
+        "fused_scan_max_err_over_peak": scan_err,
+        "shape_fused_scan": list(fused_scan.shape),
+    })
+    finite = all(np.all(np.isfinite(a)) for a in
+                 (fused_nopd, modular_nopd, fused_1p, modular_1p, modular, fused_scan))
+    if not finite or max(err, ph.out["beyond_common_over_peak"]) >= 1e-3:
+        raise AssertionError(f"the modular render differs from the fused one: {ph.out}")
+    if max(err_1p, ph.out["onepass_trimmed_beyond_common_over_peak"]) >= 1e-3:
+        raise AssertionError(f"the trimmed fused render breaks the shift contract: {ph.out}")
+    if scan_err >= 1e-3 or scan_launches == 0 or scan_info["filter_method"] != "scan":
+        raise AssertionError(f"the fused scan finalize differs from the fft one: {ph.out}")
+
+
+def _phase_raw_and_dump(ph, dev, tmp):
+    """--save-raw, then --from-raw, then --dump-paths through the CLI on
+    the vault at RAW_DUMP_RAYS rays: the WAVs of the direct modular render
+    and of the raw file are equal, and so are the IRs of pipeline.render
+    and render_from_raw of its saved population (bit for bit); the dump has
+    one JSON line per ray of R {"position": [x, y, z], "volume": v} in the
+    JAX schema, equal to the trace's diffuse records. The phase's cost is
+    host zlib and JSON, not the card."""
+    import numpy as np
+
+    from rayverb_tpu_torch import cli, engine, pipeline
+    from rayverb_tpu_torch.config.schema import parse_config
+    from rayverb_tpu_torch.io.audio import read_audio
+    from rayverb_tpu_torch.scene import load_scene
+    from rayverb_tpu_torch.utils.directions import random_directions
+
+    with open(VAULT[0]) as f:
+        doc = dict(json.load(f), rays=RAW_DUMP_RAYS)
+    cfg_path = os.path.join(tmp, "vault_raw.json")
+    with open(cfg_path, "w") as f:
+        json.dump(doc, f)
+    paths = [cfg_path, *VAULT[1:]]
+    raw = os.path.join(tmp, "vault_raw.npz")
+    dump = os.path.join(tmp, "vault_paths.jsonl")
+    walls = {}
+    for label, extra in (("save_raw", ["--pipeline", "modular", "--save-raw", raw]),
+                         ("from_raw", ["--from-raw", raw]),
+                         ("dump_paths", ["--dump-paths", dump])):
+        t0 = time.perf_counter()
+        rc = cli.main([*paths, os.path.join(tmp, f"{label}.wav"), "--device", "cuda", *extra])
+        walls[label] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"the CLI with {extra} exited {rc}")
+    wav = {k: read_audio(os.path.join(tmp, f"{k}.wav"))[0] for k in walls}
+    wav_equal = bool(wav["save_raw"].shape == wav["from_raw"].shape
+                     and np.array_equal(wav["save_raw"], wav["from_raw"]))
+    cfg = parse_config(json.dumps(doc))
+    scene = load_scene(VAULT[1], VAULT[2])
+    direct = pipeline.render(cfg, scene, directions=random_directions(cfg.rays, seed=cfg.seed),
+                             device=dev)
+    lib_raw = os.path.join(tmp, "lib_raw.npz")
+    engine.save_raw(lib_raw, direct.raw)
+    again = pipeline.render_from_raw(cfg, engine.load_raw(lib_raw), device=dev)
+    ir_equal = bool(direct.channels.shape == again.channels.shape
+                    and np.array_equal(direct.channels, again.channels))
+    with open(dump) as f:
+        lines = [json.loads(ln) for ln in f]
+    schema_ok = all(
+        isinstance(line, list) and len(line) == cfg.reflections
+        and all(set(e) == {"position", "volume"} and len(e["position"]) == 3 for e in line)
+        for line in lines
+    )
+    outputs = direct.raytracer.outputs
+    pos = np.array([[e["position"] for e in line] for line in lines])
+    vol = np.array([[e["volume"] for e in line] for line in lines])
+    want_pos = outputs.diffuse_position.cpu().numpy().astype(np.float64)
+    want_vol = outputs.diffuse_volume.cpu().numpy().astype(np.float64).mean(axis=-1)
+    dump_diff = (float(np.abs(pos - want_pos).max()), float(np.abs(vol - want_vol).max()))
+    ph.out.update({
+        "rays": cfg.rays, "reflections": cfg.reflections, "walls_s": walls,
+        "raw_bytes": os.path.getsize(raw), "dump_bytes": os.path.getsize(dump),
+        "wav_equal": wav_equal, "ir_bit_identical": ir_equal,
+        "shape": list(direct.channels.shape), "dump_lines": len(lines),
+        "dump_schema_ok": schema_ok, "dump_max_abs_diff_position_volume": dump_diff,
+        "note": "host zlib (np.savez_compressed) and JSON set this phase's walls, not the card",
+    })
+    if not (wav_equal and ir_equal and schema_ok and len(lines) == cfg.rays
+            and dump_diff == (0.0, 0.0)):
+        raise AssertionError(f"raw round trip or path dump failed: {ph.out}")
 
 
 def main() -> int:
@@ -996,15 +1444,23 @@ def main() -> int:
             ph.out["torch_device"] = torch.cuda.get_device_name(0)
             ph.out["torch"] = torch.__version__
             ph.out["cuda"] = torch.version.cuda
-            from rayverb_tpu_torch import cuda_build
-            from rayverb_tpu_torch.ops import intersect_cuda
+            from concurrent.futures import ThreadPoolExecutor
 
+            from rayverb_tpu_torch import cuda_build
+            from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
+
+            # one nvcc per source, all started together
             t0 = time.perf_counter()
-            intersect_cuda.build()
+            with ThreadPoolExecutor(2) as pool:
+                for f in [pool.submit(intersect_cuda.build), pool.submit(biquad_cuda.build)]:
+                    f.result()
             ph.out["build_s"] = time.perf_counter() - t0
-            log = cuda_build.build_info["closest_hit"]["log"]
-            ph.out["ptxas"] = [ln.strip() for ln in log.splitlines()
-                               if "registers" in ln or "spill" in ln]
+            ph.out["build_s_each"] = {k: v["seconds"] for k, v in cuda_build.build_info.items()}
+            ph.out["ptxas"] = {
+                k: [ln.strip() for ln in v["log"].splitlines()
+                    if "registers" in ln or "spill" in ln]
+                for k, v in cuda_build.build_info.items()
+            }
             ph.out["sass"] = _sass_loops(cuda_build.build_info["closest_hit"]["path"])
         with Phase("kernel_vs_plain") as ph:
             batches = _phase_kernel(ph, dev)
@@ -1028,6 +1484,15 @@ def main() -> int:
             north_order = ph.out
         with Phase("order_vs_plain") as ph:
             order_rec = _phase_order(ph, dev, hall_scene)
+        with Phase("biquad_vs_plain") as ph:
+            biquad = _phase_biquad(ph, dev)
+        with Phase("modular_main_path") as ph:
+            modular_runs = _phase_modular_main(ph, dev, tmp)
+            biquad_main = ph.out["biquad_at_main_shape"]
+        with Phase("modular_vs_fused") as ph:
+            _phase_modular_vs_fused(ph, dev)
+        with Phase("raw_and_dump") as ph:
+            _phase_raw_and_dump(ph, dev, tmp)
     except Exception:
         traceback.print_exc()
         return 1
@@ -1040,7 +1505,8 @@ def main() -> int:
     unpack = primary["unpack"]
     # launches of each path, counted from 0 just before its warm run (the
     # north star's: its warm render); "launches" is the binaural vault's
-    paths = {"main_path": runs[-1], "hrtf_main_path": hrtf_runs[-1], "north_star": north[-1]}
+    paths = {"main_path": runs[-1], "hrtf_main_path": hrtf_runs[-1], "north_star": north[-1],
+             "modular_main_path": modular_runs[-1]}
     _emit({"kernels": [{
         "name": "closest_hit",
         "route": "cuda",
@@ -1101,6 +1567,30 @@ def main() -> int:
         "bound_ms": unpack["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "launch_floor_ms": unpack["launch_floor_ms"],
+    }, {
+        "name": "biquad_scan",
+        "route": "cuda",
+        "source": "rayverb_tpu_torch/csrc/biquad_scan.cu",
+        # no Pallas counterpart: the JAX package's lax.scan
+        "replaces": "rayverb_tpu/ops/filters.py:157",
+        "launches": modular_runs[-1]["biquad_launches"],
+        "launches_by_path": {k: r["biquad_launches"] for k, r in paths.items()},
+        "max_abs_err": max([biquad_main["max_abs_err"]]
+                           + [c["max_abs_err"] for c in biquad["cases"]]),
+        # one pass at the modular vault's first filter shape (CUDA events);
+        # the plain version once at the same shape
+        "ms": biquad_main["ms"],
+        "plain_ms": biquad_main["plain_ms"],
+        "shape": biquad_main["shape"],
+        "bound_ms": biquad_main["bound_ms"],
+        "bound_by": biquad_main["bound_by"],
+        "dependency_bound_ms": biquad_main["dependency_bound_ms"],
+        # no PyTorch call computes an IIR scan
+        "library_ms": None,
+        "ms_per_pass_524288": biquad["ms_per_pass"],
+        "bounds_524288": biquad["bounds"],
+        "full_length_max_err_over_peak": biquad["full_length"]["max_err_over_peak"],
     }]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {

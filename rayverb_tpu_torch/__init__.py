@@ -1,10 +1,12 @@
 """rayverb_tpu_torch: the PyTorch/CUDA port of rayverb_tpu.
 
 The JAX package ``rayverb_tpu`` stays the reference. This package mirrors
-its module names and computes the same render with PyTorch tensors; the one
-TPU kernel on the render's path, the closest-hit sweep, is a hand-written
-CUDA kernel here (csrc/closest_hit.cu). It imports nothing of JAX and
-nothing of ``rayverb_tpu``.
+its module names and computes the same renders (the fused one and the
+modular pipeline) with PyTorch tensors; the one TPU kernel on their path,
+the closest-hit sweep, is a hand-written CUDA kernel here
+(csrc/closest_hit.cu), and so is the filter bank's sequential biquad scan,
+which the JAX package runs as lax.scan (csrc/biquad_scan.cu). It imports
+nothing of JAX and nothing of ``rayverb_tpu``.
 """
 
 from .constants import NUM_BANDS, NUM_IMAGE_SOURCE, SPEED_OF_SOUND

@@ -4,12 +4,18 @@ Same four positionals, error texts and exit codes as rayverb_tpu/cli.py
 (the reference's cmd/main.cpp:104-137):
 
     python -m rayverb_tpu_torch.cli <config.json> <model> <materials.json> \\
-        <out.{wav,aif[f]}> [--device cuda|cpu] [--seed N] [--stats]
+        <out.{wav,aif[f]}> [--device cuda|cpu] [--seed N] [--stats] \\
+        [--pipeline fused|modular] [--filter-method scan|fft] \\
+        [--save-raw FILE.npz] [--from-raw FILE.npz] [--dump-paths FILE]
 
-The render is the fused one (rayverb_tpu_torch.ops.render.render_fused),
-for speaker and HRTF configs, on the GPU unless ``--device cpu`` is given.
-With ``--stats`` and RAYVERB_SWEEP_STATS set, the executed pair tests by
-sweep kind are printed too. Errors: message to stderr, exit code 1.
+The default render is the fused one (ops.render.render_fused); ``--pipeline
+modular`` (pipeline.render) runs the reference's stages one by one, with
+the exact sequential scan filters by default. ``--save-raw``,
+``--from-raw`` and ``--dump-paths`` imply the modular pipeline, as in the
+JAX CLI. Speaker and HRTF configs, on the GPU unless ``--device cpu`` is
+given. With ``--stats`` the phase walls are printed, and with
+RAYVERB_SWEEP_STATS set the fused render's executed pair tests by sweep
+kind too. Errors: message to stderr, exit code 1.
 """
 
 from __future__ import annotations
@@ -17,9 +23,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-
-# flags of the JAX CLI whose paths are not ported yet
-_NOT_PORTED = ("--dump-paths", "--save-raw", "--from-raw")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,23 +44,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="closest-hit sweep: the CUDA kernel on a GPU (auto), "
                         "or its plain PyTorch version")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    p.add_argument("--pipeline", choices=("fused", "modular"), default="fused")
-    for flag in _NOT_PORTED:
-        p.add_argument(flag, metavar="FILE", default=None,
-                       help="not ported yet")
+    p.add_argument("--dump-paths", metavar="FILE", default=None,
+                   help="write per-ray reflection paths as JSONL (the reference's "
+                        "DIAGNOSTIC impulse.dump)")
+    p.add_argument("--filter-method", choices=("scan", "fft"), default="scan",
+                   help="IIR filters as exact sequential scans or the FFT fast "
+                        "path (modular pipeline only)")
+    p.add_argument("--pipeline", choices=("fused", "modular"), default="fused",
+                   help="fused: whole render on the device (fast path); "
+                        "modular: the reference's stages (exact scan filters, "
+                        "raw impulse access)")
+    p.add_argument("--save-raw", metavar="FILE.npz", default=None,
+                   help="persist raw impulses so post-processing can be "
+                        "re-run without re-tracing (implies modular pipeline)")
+    p.add_argument("--from-raw", metavar="FILE.npz", default=None,
+                   help="skip the trace and post-process impulses saved "
+                        "with --save-raw")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-
-    if args.pipeline == "modular":
-        print("--pipeline modular is not ported yet", file=sys.stderr)
-        return 1
-    for flag in _NOT_PORTED:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            print(f"{flag} is not ported yet", file=sys.stderr)
-            return 1
 
     from .config.schema import ConfigError, load_config
     from .io.audio import (
@@ -104,57 +111,110 @@ def main(argv=None) -> int:
     try:
         import time as _time
 
-        from .ops.render import render_fused
-
         t0 = _time.perf_counter()
         scene = load_scene(args.model, args.materials, verbose=config.verbose)
         t1 = _time.perf_counter()
         seed = args.seed if args.seed is not None else config.seed
         directions = random_directions(config.rays, seed=seed)
-        channels, info = render_fused(
-            scene,
-            config,
-            directions,
-            impl=args.trace_impl,
-            device=args.device,
-            stats=args.stats,
+
+        use_fused = (
+            args.pipeline == "fused"
+            and not args.dump_paths
+            and not args.save_raw
+            and not args.from_raw
         )
+        timer = None
+        if args.stats and not use_fused:
+            from .device import resolve_device
+            from .utils.diagnostics import PhaseTimer
+
+            timer = PhaseTimer(resolve_device(args.device))
+        if args.from_raw:
+            from .engine import load_raw
+            from .pipeline import render_from_raw
+
+            result = render_from_raw(
+                config, load_raw(args.from_raw), filter_method=args.filter_method,
+                device=args.device, timer=timer,
+            )
+            channels = result.channels
+        elif use_fused:
+            from .ops.render import render_fused
+
+            channels, info = render_fused(
+                scene,
+                config,
+                directions,
+                impl=args.trace_impl,
+                device=args.device,
+                stats=args.stats,
+            )
+        else:
+            from .pipeline import render
+
+            result = render(
+                config,
+                scene,
+                directions=directions,
+                filter_method=args.filter_method,
+                trace_impl=args.trace_impl,
+                device=args.device,
+                timer=timer,
+            )
+            channels = result.channels
         t2 = _time.perf_counter()
+
+        if args.dump_paths and not use_fused and result.raytracer is not None:
+            from .utils.diagnostics import dump_paths
+
+            dump_paths(
+                args.dump_paths,
+                config.rays,
+                config.reflections,
+                result.raytracer.outputs,
+            )
+
+        if args.save_raw and not args.from_raw:
+            from .engine import save_raw
+
+            save_raw(args.save_raw, result.raw)
+
         write_audio(args.output, channels, config.sample_rate, config.bit_depth)
         t3 = _time.perf_counter()
 
         if args.stats:
             bounces = config.rays * config.reflections
+            device = info["device"] if use_fused else str(timer.device)
             print(
                 f"scene load: {t1 - t0:.3f}s  render: {t2 - t1:.3f}s  "
                 f"write: {t3 - t2:.3f}s  "
                 f"({bounces / max(t2 - t1, 1e-9) / 1e6:.2f} M ray-bounces/s)"
-                f"  device: {info['device']}",
+                f"  device: {device}",
                 file=sys.stderr,
             )
-            tm = info["timings"]
-            phases = "  ".join(
-                f"{k}: {v:.3f}s" for k, v in tm.items() if k != "total"
-            )
-            print(
-                f"phases [{phases}]  "
-                f"pair-tests: {info['pair_tests_issued']:.3g} issued, "
-                f"{info['pair_tests_per_s'] / 1e9:.2f} G/s",
-                file=sys.stderr,
-            )
-            if "pair_tests_executed" in info:
-                kinds = "  ".join(
-                    f"{k}: {v}" for k, v in info["pair_tests_executed"].items()
+            if not use_fused:
+                print(f"phases [{timer.report()}]", file=sys.stderr)
+            else:
+                tm = info["timings"]
+                phases = "  ".join(
+                    f"{k}: {v:.3f}s" for k, v in tm.items() if k != "total"
                 )
                 print(
-                    f"pair-tests executed: {info['pair_tests_executed_total']} "
-                    f"[{kinds}]  "
-                    f"{info['pair_tests_executed_per_s'] / 1e9:.2f} G/s",
+                    f"phases [{phases}]  "
+                    f"pair-tests: {info['pair_tests_issued']:.3g} issued, "
+                    f"{info['pair_tests_per_s'] / 1e9:.2f} G/s",
                     file=sys.stderr,
                 )
-    except NotImplementedError as e:
-        print(e, file=sys.stderr)
-        return 1
+                if "pair_tests_executed" in info:
+                    kinds = "  ".join(
+                        f"{k}: {v}" for k, v in info["pair_tests_executed"].items()
+                    )
+                    print(
+                        f"pair-tests executed: {info['pair_tests_executed_total']} "
+                        f"[{kinds}]  "
+                        f"{info['pair_tests_executed_per_s'] / 1e9:.2f} G/s",
+                        file=sys.stderr,
+                    )
     except (ValueError, RuntimeError, OSError) as e:
         print("encountered runtime error:", file=sys.stderr)
         print(e, file=sys.stderr)

@@ -36,7 +36,10 @@ NVCC_FLAGS = (
     "-shared",
 )
 
-_lock = threading.Lock()
+# one lock per library, so that libraries build in parallel threads (one
+# nvcc each) while a second caller of the same library waits for its build
+_locks_guard = threading.Lock()
+_locks: dict = {}
 _libs: dict = {}
 # name -> {"seconds": build wall (0.0 when reused), "log": nvcc's output,
 #          "path": the loaded library}
@@ -69,8 +72,11 @@ def _key(sources) -> str:
 def load_library(name: str, sources) -> ctypes.CDLL:
     """Build (if needed) and load ``_build/<name>-<hash>.so`` from the given
     ``.cu`` file names under csrc/. Raises RuntimeError when nvcc fails or
-    runs past NVCC_TIMEOUT_S."""
-    with _lock:
+    runs past NVCC_TIMEOUT_S. Libraries of other names may build at the
+    same time, each in its own thread."""
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         paths = [os.path.join(CSRC, s) for s in sources]

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..constants import HRTF_EAR_OFFSET, SECONDS_PER_METER
+from ..device import resolve_device
 
 # float32 degrees per radian, the constant jnp.degrees multiplies by
 _DEGREES = np.float32(180.0 / np.pi)
@@ -134,11 +135,12 @@ def hrtf_attenuate(mic, volumes, positions, times, pointing, up, table=None):
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
-def attenuate(results, model, table=None, device="cpu"):
+def attenuate(results, model, table=None, device=None):
     """Dispatch on the attenuation model (cmd/main.cpp:279-297). ``results``
     is any object with ``mic``, ``volume`` (M, 8), ``position`` (M, 3) and
-    ``time`` (M,); returns (volumes (C, M, 8), times (C, M)) on
-    ``device``."""
+    ``time`` (M,); returns (volumes (C, M, 8), times (C, M)) on ``device``
+    (None: the card, device.resolve_device)."""
+    device = resolve_device(device)
     vol = _f32(results.volume, device)
     pos = _f32(results.position, device)
     tim = _f32(results.time, device)

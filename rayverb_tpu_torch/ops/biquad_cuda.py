@@ -1,0 +1,85 @@
+"""Wrapper of the hand-written CUDA biquad scan (csrc/biquad_scan.cu), which
+runs the crossover bank's IIR recurrence on the card where the JAX package
+runs lax.scan (rayverb_tpu/ops/filters.py::biquad_onepass, :157).
+
+The kernel is built with nvcc at first use (cuda_build) and called through
+its C interface with ctypes. This module imports without nvcc or a GPU;
+nothing is built until the first launch. The plain version of the kernel is
+filters.biquad_onepass_plain; filters.biquad_onepass is the only caller.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# launches since import (or since the caller last reset it); the wrapper
+# adds one per launch and nowhere else
+launches = 0
+
+# samples per shared-memory tile of the kernel (kTile), read by the CPU
+# tests' twin of its schedule
+TILE = 4096
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from ..cuda_build import load_library
+
+        lib = load_library("biquad_scan", ["biquad_scan.cu"])
+        fn = lib.rv_biquad_scan
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def build() -> None:
+    """Build and load the kernel library now (it is otherwise built at the
+    first launch)."""
+    _kernel()
+
+
+def biquad_scan_cuda(data, coeffs, *, reverse: bool = False, content_len=None):
+    """(S, T) float32 output of S biquad series on the current stream:
+    the contract of filters.biquad_onepass_plain (series s with
+    coeffs[s] = [b0, b1, b2, a1, a2]; samples [content_len, T) are 0; a
+    reverse pass starts at content_len - 1). ``data`` (S, T) and ``coeffs``
+    (S, 5) must be contiguous float32 CUDA tensors on one device; anything
+    else raises."""
+    global launches
+    if not data.is_cuda:
+        raise ValueError(
+            "biquad_scan_cuda needs CUDA tensors; CPU tensors go to "
+            "filters.biquad_onepass_plain"
+        )
+    dev = data.device
+    if data.dim() != 2 or data.dtype != torch.float32 or not data.is_contiguous():
+        raise ValueError(f"data must be a contiguous (S, T) float32 tensor, got "
+                         f"{tuple(data.shape)} {data.dtype}")
+    s, t = data.shape
+    if (coeffs.device != dev or coeffs.dtype != torch.float32
+            or tuple(coeffs.shape) != (s, 5) or not coeffs.is_contiguous()):
+        raise ValueError(f"coeffs must be a contiguous ({s}, 5) float32 tensor on "
+                         f"{dev}, got {tuple(coeffs.shape)} {coeffs.dtype} on {coeffs.device}")
+    content = t if content_len is None else int(content_len)
+    if not 0 <= content <= t:
+        raise ValueError(f"content_len must lie in [0, {t}], got {content}")
+    if s >= 2**31 or t >= 2**31:
+        raise ValueError(f"the kernel takes fewer than 2**31 series and samples, got {s} x {t}")
+    out = torch.empty_like(data)
+    if s == 0 or t == 0:
+        return out
+    fn = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(data.data_ptr(), out.data_ptr(), coeffs.data_ptr(), s, t,
+                 content, int(bool(reverse)), stream)
+    if err != 0:
+        raise RuntimeError(f"biquad scan kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out

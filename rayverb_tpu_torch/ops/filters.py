@@ -1,9 +1,25 @@
-"""The crossover filter bank's host-side coefficients (numpy), a subset of
-rayverb_tpu/ops/filters.py: the biquad and Linkwitz-Riley coefficient
-stacks and the FFT length the render's ``fft`` finalize uses.
+"""The multiband crossover filter bank (PyTorch counterpart of
+rayverb_tpu/ops/filters.py).
 
-Not ported yet: the windowed-sinc FIR bank and the sequential-scan and
-FFT applicators of the modular pipeline.
+The four reference filters (rayverb/filters.{h,cpp}):
+
+  - windowed-sinc FIR  -> torch.fft convolution (FastConvolution parity:
+    output grows by KERNEL_LENGTH - 1 samples, filters.cpp:96-154)
+  - biquad one-pass    -> direct form II transposed scan (filters.cpp:156-168)
+  - biquad two-pass    -> forward + reverse scans (filters.cpp:185-191)
+  - Linkwitz-Riley     -> zero-phase 4th-order LP+HP from twice-applied
+    2nd-order butterworth sections (filters.cpp:230-266)
+
+The scan is the hand-written CUDA kernel biquad_scan (ops/biquad_cuda.py,
+csrc/biquad_scan.cu) for a CUDA tensor and its plain version,
+``biquad_onepass_plain``, for a CPU tensor; ``biquad_onepass`` is the only
+route to either. Each IIR filter also has the FFT-domain path
+(``method='fft'``): the transfer function on the rFFT grid, applied with
+zero padding and truncated to the input length.
+
+Tensors stay on their device; array input goes to the card
+(device.resolve_device). A device failure raises: there is no fallback to
+the host.
 
 Band edges: {lo_cutoff, 175, 350, 700, 1400, 2800, 5600, 11200, 20000}
 (filters.cpp:295-305).
@@ -14,10 +30,84 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from ..config.schema import FilterType
 from ..constants import FILTER_EDGES_UPPER
+from ..device import resolve_device
 
+KERNEL_LENGTH = 29  # filters.h:123,139
+
+
+def _f32(x, device=None):
+    """float32 tensor: a tensor keeps its device, anything else goes to
+    ``device`` (None: the card)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# windowed-sinc kernels (host-side construction, filters.cpp:9-81)
+# ---------------------------------------------------------------------------
+
+def sinc_kernel(cutoff_ratio: float, length: int) -> np.ndarray:
+    """Un-windowed lowpass sinc kernel (filters.cpp:17-33)."""
+    if length % 2 == 0:
+        raise ValueError("Length of sinc filter kernel must be odd.")
+    i = np.arange(length, dtype=np.float64)
+    center = (length - 1) / 2.0
+    x = 2 * cutoff_ratio * (i - center)
+    with np.errstate(invalid="ignore"):
+        k = np.sin(np.pi * x) / (np.pi * x)
+    k[int(center)] = 1.0
+    return k
+
+
+def blackman(length: int) -> np.ndarray:
+    """Exact blackman coefficients (filters.cpp:35-54)."""
+    a0, a1, a2 = 7938.0 / 18608.0, 9240.0 / 18608.0, 1430.0 / 18608.0
+    off = np.arange(length, dtype=np.float64) / (length - 1.0)
+    return a0 - a1 * np.cos(2 * np.pi * off) + a2 * np.cos(4 * np.pi * off)
+
+
+def lopass_kernel(sr: float, cutoff: float, length: int) -> np.ndarray:
+    """Windowed, max-normalised lowpass kernel (filters.cpp:56-71)."""
+    k = blackman(length) * sinc_kernel(cutoff / sr, length)
+    return (k / np.max(np.abs(k))).astype(np.float32)
+
+
+def hipass_kernel(sr: float, cutoff: float, length: int) -> np.ndarray:
+    """Spectral inversion of the lowpass (filters.cpp:73-81)."""
+    k = -lopass_kernel(sr, cutoff, length).astype(np.float64)
+    k[(length - 1) // 2] += 1
+    return k.astype(np.float32)
+
+
+def bandpass_sinc_kernel(sr: float, lo: float, hi: float) -> np.ndarray:
+    """Bandpass = lowpass(hi) (*) hipass(lo), each of length 1 + 29//2
+    (BandpassWindowedSinc::bandpassKernel, filters.cpp:126-137)."""
+    half = 1 + KERNEL_LENGTH // 2
+    lop = lopass_kernel(sr, hi, half).astype(np.float64)
+    hip = hipass_kernel(sr, lo, half).astype(np.float64)
+    return np.convolve(lop, hip)[:KERNEL_LENGTH].astype(np.float32)
+
+
+def fir_filter(data, kernel):
+    """Full linear convolution via FFT (FastConvolution semantics: output
+    length = len(data) + len(kernel) - 1, the 14-sample sinc delay is NOT
+    compensated, filters.cpp:104-107). data: (..., T)."""
+    data = _f32(data)
+    kernel = _f32(kernel, data.device).to(data.device)
+    out_len = data.shape[-1] + kernel.shape[-1] - 1
+    d = torch.fft.rfft(data, n=out_len)
+    k = torch.fft.rfft(kernel, n=out_len)
+    return torch.fft.irfft(d * k, n=out_len).to(torch.float32)[..., :out_len]
+
+
+# ---------------------------------------------------------------------------
+# biquad coefficients (filters.cpp:193-266)
+# ---------------------------------------------------------------------------
 
 def bandpass_biquad_coeffs(lo: float, hi: float, sr: float):
     """RBJ cookbook constant-skirt bandpass (filters.cpp:193-218)."""
@@ -68,10 +158,113 @@ def linkwitz_riley_coeffs(lo: float, hi: float, sr: float):
     return lopass, hipass
 
 
+# ---------------------------------------------------------------------------
+# biquad application
+# ---------------------------------------------------------------------------
+
+def biquad_onepass_plain(data, coeffs, *, reverse: bool = False, content_len=None):
+    """The plain PyTorch version of the biquad_scan kernel: (S, T) float32
+    series, (S, 5) float32 coefficients [b0, b1, b2, a1, a2] per series.
+    Direct form II transposed from zero state (Biquad::onepass,
+    filters.cpp:156-168), vectorised over the series and looped over time
+    in Python, each multiply and add rounded on its own, in the kernel's
+    order:
+
+        out = x*b0 + z1;  z1' = (x*b1 + z2) - a1*out;  z2' = x*b2 - a2*out
+
+    over the samples [0, content_len) (reverse: from content_len - 1 down
+    to 0); samples at and after content_len are +0. content_len None means
+    T."""
+    s, t = data.shape
+    n = t if content_len is None else int(content_len)
+    if not 0 <= n <= t:
+        raise ValueError(f"content_len must lie in [0, {t}], got {n}")
+    x_t = data.T.contiguous()  # (T, S): one row per step
+    out_t = torch.zeros_like(x_t)
+    b0, b1, b2, a1, a2 = coeffs.T.contiguous()
+    z1 = torch.zeros((s,), dtype=torch.float32, device=data.device)
+    z2 = torch.zeros_like(z1)
+    for i in range(n - 1, -1, -1) if reverse else range(n):
+        x = x_t[i]
+        out = x * b0 + z1
+        z1 = x * b1 + z2 - a1 * out
+        z2 = x * b2 - a2 * out
+        out_t[i] = out
+    return out_t.T.contiguous()
+
+
+def biquad_onepass(data, coeffs, *, reverse: bool = False, content_len=None):
+    """Direct-form II transposed scan (Biquad::onepass, filters.cpp:156-168;
+    rayverb_tpu/ops/filters.py::biquad_onepass, :157). data: (..., T);
+    coeffs: (5,) [b0, b1, b2, a1, a2], or (..., 5) broadcastable to data's
+    leading dims (one set per series). Coefficients are cast to float32, as
+    the JAX function casts them; the state is float32.
+
+    reverse=True runs back to front over the unflipped signal (the JAX
+    lax.scan(reverse=True)). content_len: samples at and after it are
+    written as 0 and a reverse pass starts at content_len - 1 (the fused
+    finalize's per-pass mask); None means T.
+
+    A CUDA tensor goes to the biquad_scan kernel (ops/biquad_cuda.py), a CPU
+    tensor to biquad_onepass_plain; there is no other route."""
+    data = _f32(data)
+    coeffs = _f32(coeffs, data.device).to(data.device)
+    shape = data.shape
+    t = shape[-1]
+    x = data.reshape(-1, t).contiguous()
+    c = torch.broadcast_to(coeffs, shape[:-1] + (5,)).reshape(-1, 5).contiguous()
+    if x.is_cuda:
+        from .biquad_cuda import biquad_scan_cuda
+
+        out = biquad_scan_cuda(x, c, reverse=reverse, content_len=content_len)
+    else:
+        out = biquad_onepass_plain(x, c, reverse=reverse, content_len=content_len)
+    return out.reshape(shape)
+
+
+def biquad_twopass(data, coeffs):
+    """Forward-backward (zero phase) (Biquad::twopass, filters.cpp:185-191)."""
+    return biquad_onepass(biquad_onepass(data, coeffs), coeffs, reverse=True)
+
+
+def _biquad_response(coeffs, nfft: int):
+    """H(e^{jw}) of a biquad on the rFFT grid (float64 on host)."""
+    b0, b1, b2, a1, a2 = [float(c) for c in coeffs]
+    w = np.exp(-2j * np.pi * np.arange(nfft // 2 + 1) / nfft)
+    num = b0 + b1 * w + b2 * w * w
+    den = 1.0 + a1 * w + a2 * w * w
+    return num / den
+
+
 def _fft_len(t: int, pad: int = 8192) -> int:
     n = t + pad
     return 1 << (n - 1).bit_length()
 
+
+def fft_biquad_onepass(data, coeffs):
+    """One causal biquad pass as FFT convolution, truncated to the input
+    length (zero initial conditions == zero-extended input; the response
+    beyond the zero padding has decayed below float32 noise)."""
+    data = _f32(data)
+    t = data.shape[-1]
+    nfft = _fft_len(t)
+    h = torch.from_numpy(_biquad_response(coeffs, nfft).astype(np.complex64)).to(data.device)
+    out = torch.fft.irfft(torch.fft.rfft(data, n=nfft) * h, n=nfft)
+    return out[..., :t].to(torch.float32)
+
+
+def fft_biquad_twopass(data, coeffs):
+    """Forward-backward with the same inter-pass truncation as the scan
+    path (Biquad::twopass parity, filters.cpp:185-191)."""
+    out = fft_biquad_onepass(data, coeffs)
+    out = torch.flip(out, dims=(-1,))
+    out = fft_biquad_onepass(out, coeffs)
+    return torch.flip(out, dims=(-1,))
+
+
+# ---------------------------------------------------------------------------
+# the public bank (RayverbFiltering::filter, filters.cpp:268-306)
+# ---------------------------------------------------------------------------
 
 def band_edges(lo_cutoff: float, sample_rate: float | None = None):
     """Crossover edges {lo_cutoff, 175, ..., 20000} (filters.cpp:297-298),
@@ -87,9 +280,60 @@ def band_edges(lo_cutoff: float, sample_rate: float | None = None):
     return tuple(edges)
 
 
+def _bank_scan_onepass(data, coeffs):
+    """data (..., 8, T), coeffs (8, 5): per-band sequential biquads, every
+    band and channel in one scan."""
+    return biquad_onepass(data, coeffs)
+
+
+def _scan_onepass_multi(data, coeff_stack, content_len=None):
+    """Apply a sequence of (8, 5) coefficient sets, with optional
+    time-reversal between passes encoded as (coeffs, flip) pairs. A pass
+    whose cumulative flip parity is odd runs as a reverse scan on the
+    unflipped signal (the same bits as flip, scan, flip back), so the
+    output keeps the input's time order. content_len: biquad_onepass's
+    per-pass mask."""
+    out = _f32(data)
+    reverse = False
+    for coeffs, do_flip in coeff_stack:
+        reverse ^= bool(do_flip)
+        out = biquad_onepass(out, coeffs, reverse=reverse, content_len=content_len)
+    return out
+
+
+def _bank_fft_passes(data, responses, flips: tuple, nfft: int):
+    """data (..., 8, T); responses (P, 8, nfft//2+1) complex64 on data's
+    device; flips: flip time order before pass p. Each pass convolves band
+    b with responses[p, b] and truncates to T."""
+    out = _f32(data)
+    t = out.shape[-1]
+    nflips = 0
+    for p, do_flip in enumerate(flips):
+        if do_flip:
+            out = torch.flip(out, dims=(-1,))
+            nflips += 1
+        spec = torch.fft.rfft(out, n=nfft)
+        out = torch.fft.irfft(spec * responses[p], n=nfft)[..., :t]
+    if nflips % 2:
+        out = torch.flip(out, dims=(-1,))
+    return out.to(torch.float32)
+
+
+def _fir_bank(data, kernels):
+    """data (..., 8, T), kernels (8, K) -> full convolution per band."""
+    data = _f32(data)
+    k = _f32(kernels, data.device).to(data.device)
+    out_len = data.shape[-1] + k.shape[-1] - 1
+    spec = torch.fft.rfft(data, n=out_len)
+    kspec = torch.fft.rfft(k, n=out_len)
+    return torch.fft.irfft(spec * kspec, n=out_len).to(torch.float32)
+
+
 def _band_coeffs(filter_type: FilterType, sample_rate: float, lo_cutoff: float):
     """Host-side coefficient stacks: list of ((8, 5) array, flip_before)
-    passes replaying the reference's per-band filter sequence."""
+    passes replaying the reference's per-band filter sequence. The
+    windowed-sinc filter, which has no IIR passes, gets the Linkwitz-Riley
+    stacks, as in the JAX function."""
     edges = band_edges(lo_cutoff, sample_rate)
     per_band = [(edges[i], edges[i + 1]) for i in range(8)]
     if filter_type in (FilterType.BIQUAD_ONEPASS, FilterType.BIQUAD_TWOPASS):
@@ -100,10 +344,6 @@ def _band_coeffs(filter_type: FilterType, sample_rate: float, lo_cutoff: float):
         if filter_type == FilterType.BIQUAD_ONEPASS:
             return [(c, False)]
         return [(c, False), (c, True)]  # forward then reversed
-    if filter_type != FilterType.LINKWITZ_RILEY:
-        raise NotImplementedError(
-            f"the {filter_type.value} filter bank is not ported yet"
-        )
     lp = np.array(
         [linkwitz_riley_coeffs(lo, hi, sample_rate)[0] for lo, hi in per_band],
         dtype=np.float64,
@@ -114,3 +354,46 @@ def _band_coeffs(filter_type: FilterType, sample_rate: float, lo_cutoff: float):
     )
     # lopass.twopass then hipass.twopass (filters.cpp:262-266)
     return [(lp, False), (lp, True), (hp, True), (hp, True)]
+
+
+def sinc_bank_kernels(sample_rate: float, lo_cutoff: float) -> np.ndarray:
+    """(8, KERNEL_LENGTH) float32 bandpass kernels of the windowed-sinc
+    bank."""
+    edges = band_edges(lo_cutoff, sample_rate)
+    return np.stack(
+        [bandpass_sinc_kernel(sample_rate, edges[i], edges[i + 1]) for i in range(8)]
+    )
+
+
+def filter_bank(
+    data,
+    sample_rate: float,
+    lo_cutoff: float,
+    filter_type: FilterType,
+    *,
+    method: str = "scan",
+):
+    """Filter (..., 8, T) band signals on data's device in place of the
+    reference's per-channel loop. Returns (..., 8, T'): T' = T + 28 for the
+    sinc filter (FastConvolution growth), T otherwise.
+
+    method: 'scan' (exact sequential IIR parity: the biquad_scan kernel on
+    the card) or 'fft' (each causal pass as a truncated FFT convolution)."""
+    data = _f32(data)
+    if filter_type == FilterType.WINDOWED_SINC:
+        return _fir_bank(data, sinc_bank_kernels(sample_rate, lo_cutoff))
+    if method not in ("scan", "fft"):
+        raise ValueError(f"method must be 'scan' or 'fft', not {method!r}")
+    passes = _band_coeffs(filter_type, sample_rate, lo_cutoff)
+    if method == "fft":
+        nfft = _fft_len(data.shape[-1])
+        responses = np.stack(
+            [
+                np.stack([_biquad_response(c, nfft).astype(np.complex64) for c in coeffs])
+                for coeffs, _ in passes
+            ]
+        )
+        flips = tuple(bool(f) for _, f in passes)
+        return _bank_fft_passes(data, torch.from_numpy(responses).to(data.device),
+                                flips, nfft)
+    return _scan_onepass_multi(data, passes)

@@ -199,8 +199,9 @@ def scene_fields(v0, e0, e1, surface, specular, diffuse) -> dict:
     )
 
 
-def soup_from_scene(scene, device="cpu") -> TriangleSoup:
-    """Build a TriangleSoup on ``device`` from a compiled host Scene."""
+def soup_from_scene(scene, device=None) -> TriangleSoup:
+    """Build a TriangleSoup on ``device`` (None: the card) from a compiled
+    host Scene."""
     from ..params import soup_from_numpy
 
     return soup_from_numpy(

@@ -11,8 +11,11 @@ rayverb_tpu/ops/render.py::render_fused, :1157).
                  32-bit chain hashes for the dedup
   finalize     = cross-ray image dedup (sort by chain hash, keep first),
                  image attenuation + binning, predelay shift, content length
-                 (``_finalize_hist``); crossover filter bank as FFT passes,
-                 mixdown, normalise, volume, trim length (``_finalize_filter``)
+                 (``_finalize_hist``); crossover filter bank as FFT passes
+                 (or, with RAYVERB_FINALIZE_FILTER=scan, as sequential scans
+                 on the biquad_scan kernel; the windowed-sinc bank as one
+                 FIR convolution), mixdown, normalise, volume, trim length
+                 (``_finalize_filter``)
 
 Attenuation is per speaker (polar patterns) or binaural (HRTF: per-ear
 8-band gains from a (2, 360, 180, 8) table and ITD-shifted arrival times;
@@ -59,7 +62,7 @@ from ..constants import (
     TRIM_TAIL_FLOOR,
 )
 from ..device import resolve_device
-from ..utils.directions import morton_sort
+from ..utils.directions import morton_order
 from .attenuate import _f32, head_basis, hrtf_gain_time, speaker_gain
 from .filters import _band_coeffs, _fft_len
 from .intersect import SWEEP_RAYS, TriangleSoup, soup_from_scene
@@ -132,10 +135,11 @@ class AttenSpec(NamedTuple):
     up: torch.Tensor | None = None              # (3,)
 
 
-def make_atten_spec(model, device="cpu", table=None) -> AttenSpec:
-    """AttenSpec of an attenuation model (render.py:140-181). HRTF models
-    take ``table`` (numpy or tensor, (2, 360, 180, 8)), by default
-    hrtf.table.default_table()."""
+def make_atten_spec(model, device=None, table=None) -> AttenSpec:
+    """AttenSpec of an attenuation model (render.py:140-181) on ``device``
+    (None: the card). HRTF models take ``table`` (numpy or tensor, (2, 360,
+    180, 8)), by default hrtf.table.default_table()."""
+    device = resolve_device(device)
     if model.is_hrtf:
         if table is None:
             from ..hrtf.table import default_table
@@ -478,19 +482,45 @@ def _finalize_hist(hist, imgs: _Images, mic, spec: AttenSpec, predelay,
 
 
 def _finalize_filter(hist, content_len, responses, volume_scale, *,
-                     nfft: int, do_normalize: bool):
-    """Crossover filter bank as flip-free FFT passes (reversed passes carry
-    pre-conjugated responses), mixdown, normalise, volume, trim length
-    (render.py:943-1029, method 'fft'). After every pass, samples at or
-    after the content length are zeroed."""
+                     flips: tuple, nfft: int, do_normalize: bool,
+                     filter_method: str):
+    """Crossover filter bank, mixdown, normalise, volume, trim length
+    (render.py:943-1029). The reference's arrays END at the content length,
+    so after every pass the samples at or after it are zeroed.
+
+    filter_method 'fft': flip-free truncated FFT passes, ``responses`` (P,
+    8, nfft//2+1, 2) float32 (re, im), reversed passes pre-conjugated.
+    'scan': the exact sequential biquads (the biquad_scan kernel on the
+    card), ``responses`` (P, 8, 5) float32 coefficients; a reversed pass
+    runs as a reverse scan on the unflipped signal, from content_len - 1
+    (the direction is the cumulative parity of ``flips``), and the scan
+    itself writes the zeros at and after the content length. 'fir': the
+    windowed-sinc bank as one full FFT convolution per band (``responses``
+    (1, 8, nfft//2+1, 2) kernel spectra); the output grows by
+    KERNEL_LENGTH - 1 samples, as does the content length
+    (FastConvolution, filters.cpp:96-154)."""
     out = hist
     t = out.shape[-1]
-    in_content = (torch.arange(t, device=out.device) < content_len).to(out.dtype)
-    for p in range(responses.shape[0]):
-        resp = torch.complex(responses[p, ..., 0], responses[p, ..., 1])
+    if filter_method == "fir":
+        from .filters import KERNEL_LENGTH
+
+        t = t + KERNEL_LENGTH - 1
+        content_len = content_len + KERNEL_LENGTH - 1
+        resp = torch.complex(responses[0, ..., 0], responses[0, ..., 1])
         spec_f = torch.fft.rfft(out, n=nfft)
         out = torch.fft.irfft(spec_f * resp, n=nfft)[..., :t]
-        out = out * in_content
+        out = out * (torch.arange(t, device=out.device) < content_len)
+    elif filter_method == "scan":
+        from .filters import _scan_onepass_multi
+
+        out = _scan_onepass_multi(out, zip(responses, flips), int(content_len))
+    else:
+        in_content = (torch.arange(t, device=out.device) < content_len).to(out.dtype)
+        for p in range(responses.shape[0]):
+            resp = torch.complex(responses[p, ..., 0], responses[p, ..., 1])
+            spec_f = torch.fft.rfft(out, n=nfft)
+            out = torch.fft.irfft(spec_f * resp, n=nfft)[..., :t]
+            out = out * in_content
     mixed = torch.sum(out, dim=-2)  # (C, L)
     if do_normalize:
         peak = torch.amax(torch.abs(mixed))
@@ -503,25 +533,54 @@ def _finalize_filter(hist, content_len, responses, volume_scale, *,
     return mixed, trim_len
 
 
+def _finalize_method(filter_type, method=None) -> str:
+    """The finalize's filter method: 'fir' for the windowed-sinc bank (it
+    has no IIR form); else ``method``, by default RAYVERB_FINALIZE_FILTER,
+    'fft' when unset (render.py:1055-1056)."""
+    if filter_type == FilterType.WINDOWED_SINC:
+        return "fir"
+    if method is None:
+        method = os.environ.get("RAYVERB_FINALIZE_FILTER", "fft")
+    if method not in ("fft", "scan"):
+        raise ValueError(f"finalize filter method must be 'fft' or 'scan', not {method!r}")
+    return method
+
+
 def finalize_filter_params(filter_type, sample_rate: float, lo_cutoff: float,
-                           length: int):
-    """Host-side (P, 8, nfft//2+1, 2) float32 (re, im) responses of the
-    filter passes on the rFFT grid, reversed passes pre-conjugated; returns
-    (params, nfft). Cached per (filter, sr, cutoff, length)
-    (render.py:1032-1122, method 'fft')."""
+                           length: int, method: str | None = None):
+    """Host-side numpy parameters of the finalize's filter section
+    (render.py:1032-1122); returns (params, flips, nfft, method), as the
+    JAX function does. method None reads RAYVERB_FINALIZE_FILTER ('fft'
+    when unset); the windowed-sinc bank always takes 'fir'.
+
+      - 'fft': (P, 8, nfft//2+1, 2) float32 (re, im) responses of the
+        passes on the rFFT grid, reversed passes pre-conjugated
+      - 'scan': (P, 8, 5) float32 biquad coefficients, nfft 0
+      - 'fir': (1, 8, nfft//2+1, 2) float32 spectra of the sinc kernels,
+        nfft = _fft_len(length + KERNEL_LENGTH - 1)
+
+    Cached per (filter, sr, cutoff, length, method)."""
     return _finalize_filter_params_cached(
-        filter_type, float(sample_rate), float(lo_cutoff), int(length)
+        filter_type, float(sample_rate), float(lo_cutoff), int(length),
+        _finalize_method(filter_type, method),
     )
 
 
 @lru_cache(maxsize=16)
 def _finalize_filter_params_cached(filter_type, sample_rate: float,
-                                   lo_cutoff: float, length: int):
-    if filter_type == FilterType.WINDOWED_SINC:
-        raise NotImplementedError(
-            "the windowed-sinc (fir) finalize is not ported yet"
-        )
+                                   lo_cutoff: float, length: int, method: str):
+    if method == "fir":
+        from .filters import KERNEL_LENGTH, sinc_bank_kernels
+
+        nfft = _fft_len(length + KERNEL_LENGTH - 1)
+        kernels = sinc_bank_kernels(sample_rate, lo_cutoff)
+        kspec = np.fft.rfft(kernels.astype(np.float64), n=nfft)[None]
+        params = np.stack([kspec.real, kspec.imag], axis=-1).astype(np.float32)
+        return params, (False,), nfft, "fir"
     passes = _band_coeffs(filter_type, sample_rate, lo_cutoff)
+    flips = tuple(bool(f) for _, f in passes)
+    if method == "scan":
+        return np.stack([c for c, _ in passes]).astype(np.float32), flips, 0, "scan"
     nfft = _fft_len(length)
     k = nfft // 2 + 1
     w = np.exp((-2j * np.pi / nfft) * np.arange(k))
@@ -536,15 +595,18 @@ def _finalize_filter_params_cached(filter_type, sample_rate: float,
             r = (b0 + b1 * w + b2 * w2) / (1.0 + a1 * w + a2 * w2)
             params[p, band, :, 0] = r.real
             params[p, band, :, 1] = sign * r.imag
-    return params, nfft
+    return params, flips, nfft, "fft"
 
 
 @lru_cache(maxsize=4)
-def _device_filter_params(filter_type, sample_rate, lo_cutoff, length, device):
+def _device_filter_params(filter_type, sample_rate, lo_cutoff, length, device,
+                          method):
     """finalize_filter_params uploaded to ``device`` once per key (the
-    vault's responses are ~134 MB)."""
-    params, nfft = finalize_filter_params(filter_type, sample_rate, lo_cutoff, length)
-    return torch.from_numpy(params).to(device), nfft
+    vault's fft responses are ~134 MB)."""
+    params, flips, nfft, method = finalize_filter_params(
+        filter_type, sample_rate, lo_cutoff, length, method
+    )
+    return torch.from_numpy(params).to(device), flips, nfft, method
 
 
 def histogram_length(scene, nreflections: int, sample_rate: float) -> int:
@@ -597,19 +659,34 @@ def render_bytes(nrays: int, nreflections: int, nblocks: int) -> int:
     )
 
 
+def ray_schedule(directions: np.ndarray, nblocks: int):
+    """The ray schedule that render_fused and trace.trace share; ray order
+    is semantically free. Returns (order, resort): ``order`` the Morton
+    permutation of the directions from 4 x RAY_BLOCK_SORT rays (coherent
+    bundles let neighbouring threads share triangle tiles), else None;
+    ``resort`` whether each bounce sweep re-sorts its rows, which pays once
+    the population fills many thread blocks and the table has enough
+    blocks to cull (the JAX render's rule, on the whole population)."""
+    n = directions.shape[0]
+    order = morton_order(directions) if n >= 4 * RAY_BLOCK_SORT else None
+    return order, n >= 4096 and nblocks >= 32
+
+
 def choose_ray_chunk(nrays: int, nreflections: int, nblocks: int,
-                     ray_chunk=None, budget=None) -> int:
+                     ray_chunk=None, budget=None, plan=None) -> int:
     """Rays per chunk: ``ray_chunk`` when given (at most nrays); else all
-    rays when ``budget`` is None or render_bytes fits in it; else the
+    rays when ``budget`` is None or the plan (render_bytes, or ``plan``
+    with its arguments, e.g. trace.trace_bytes) fits in it; else the
     largest power of two of rays that fits (at least 1)."""
+    plan = render_bytes if plan is None else plan
     if ray_chunk is not None:
         if int(ray_chunk) < 1:
             raise ValueError(f"ray_chunk must be >= 1, got {ray_chunk}")
         return min(int(ray_chunk), nrays)
-    if budget is None or render_bytes(nrays, nreflections, nblocks) <= budget:
+    if budget is None or plan(nrays, nreflections, nblocks) <= budget:
         return nrays
     chunk = 1 << (nrays.bit_length() - 1)
-    while chunk > 1 and render_bytes(chunk, nreflections, nblocks) > budget:
+    while chunk > 1 and plan(chunk, nreflections, nblocks) > budget:
         chunk //= 2
     return chunk
 
@@ -668,19 +745,14 @@ def render_fused(
     n = directions.shape[0]
     if n == 0:
         raise ValueError("need at least one ray")
-    if n >= 4 * RAY_BLOCK_SORT:
-        # coherent bundles let neighbouring threads share triangle tiles;
-        # ray order is semantically free
-        directions = morton_sort(directions)
     nblocks = soup.block_aabb.shape[0]
+    order, resort = ray_schedule(directions, nblocks)
+    if order is not None:
+        directions = directions[order]
     chunk = choose_ray_chunk(n, config.reflections, nblocks, ray_chunk,
                              memory_budget(dev))
     include_diffuse = config.output_mode in (OutputMode.ALL, OutputMode.DIFFUSE_ONLY)
     include_images = config.output_mode in (OutputMode.ALL, OutputMode.IMAGE_ONLY)
-    # per-bounce re-sorting of the sweep rows (semantically invisible) pays
-    # once the population fills many thread blocks and the table has enough
-    # blocks to cull: the JAX render's rule, on the whole population
-    resort = n >= 4096 and nblocks >= 32
     pair_stats = (
         torch.zeros((len(SWEEP_KINDS),), dtype=torch.int64, device=dev)
         if stats and os.environ.get("RAYVERB_SWEEP_STATS")
@@ -744,9 +816,9 @@ def render_fused(
         bucket = min(length, max(4096, 1 << (need - 1).bit_length()))
     if bucket < length:
         hist = hist[..., :bucket].contiguous()
-    params, nfft = _device_filter_params(
+    params, flips, nfft, filter_method = _device_filter_params(
         config.filter, float(config.sample_rate), float(config.hipass), bucket,
-        str(dev),
+        str(dev), _finalize_method(config.filter),
     )
 
     hist, content_len = _finalize_hist(
@@ -765,9 +837,16 @@ def render_fused(
         content_len,
         params,
         config.volume_scale,
+        flips=flips,
         nfft=nfft,
         do_normalize=config.normalize,
+        filter_method=filter_method,
     )
+    if filter_method == "fir":
+        # the sinc bank grows the IR (FastConvolution, filters.h:55-80)
+        from .filters import KERNEL_LENGTH
+
+        content_len = content_len + KERNEL_LENGTH - 1
     if stats:
         _sync(dev)
         timings["finalize"] = time.perf_counter() - t_mark
@@ -787,6 +866,7 @@ def render_fused(
         "ray_chunk": chunk,
         "chunks": -(-n // chunk),
         "bin_mode": bin_mode,
+        "filter_method": filter_method,
         "device": str(dev),
     }
     if stats:

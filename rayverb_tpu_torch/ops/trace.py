@@ -9,6 +9,10 @@ shadow rows (+ in the image phase, the validation segments and image
 visibility rows of the rays that pass the admission gate). A trace of R
 reflections therefore launches ``sweep_count(R) = 1 + 2R`` sweeps.
 
+``trace`` runs the dense trace of a whole population (the modular
+pipeline's): by default all rays in one pass, chunked only by a memory plan
+(``trace_bytes``) or an explicit ``ray_chunk``.
+
 Differences in form from the JAX trace, none in results:
   - the diffuse ``lax.scan`` is a Python loop
   - the image phase computes its validation geometry only for the rays that
@@ -34,7 +38,19 @@ from ..constants import (
     NUM_IMAGE_SOURCE,
     SECONDS_PER_METER,
 )
-from .intersect import Hit, TriangleSoup, closest_hit, intersect_triangle
+from .intersect import (
+    SWEEP_RAYS,
+    Hit,
+    TriangleSoup,
+    closest_hit,
+    intersect_triangle,
+    soup_from_scene,
+)
+
+# the JAX trace's rays per chunk (rayverb_tpu/ops/trace.py:56, the
+# reference's RAY_GROUP_SIZE, rayverb.h:199); here a trace chunks at it only
+# when asked to (trace's ray_chunk)
+DEFAULT_RAY_CHUNK = 4096
 
 # Origin far outside every block AABB: sweep rows parked here (with bound 0)
 # take part in no triangle block.
@@ -493,3 +509,95 @@ def trace_chunk(
         impl=impl,
         resort=resort,
     )
+
+
+def trace_bytes(nrays: int, nreflections: int, nblocks: int) -> int:
+    """Planned peak device bytes of one chunk of ``nrays`` rays through the
+    dense trace, over a table of ``nblocks`` blocks, from the shapes:
+
+      - the dense outputs, twice (the per-bounce rows and their stacked
+        copy): nrays x R diffuse rows of (8 + 3 + 1) float32, and nrays x
+        NUM_IMAGE_SOURCE image slots of (8 + 3 + 1) float32 and an int64
+        index
+      - the trace state, 1 KiB per ray (as render.render_bytes)
+      - the largest sweep, at most nrays x (NUM_IMAGE_SOURCE + 1) rows of
+        32 B, and its order table of rows / SWEEP_RAYS x nblocks x 4 B
+
+    The concatenated outputs of all chunks are the caller's."""
+    sweep_rows = nrays * (NUM_IMAGE_SOURCE + 1)
+    return (
+        2 * nrays * (nreflections * 48 + NUM_IMAGE_SOURCE * 56)
+        + nrays * 1024
+        + sweep_rows * 32
+        + -(-sweep_rows // SWEEP_RAYS) * nblocks * 4
+    )
+
+
+def trace(
+    scene_or_soup,
+    mic,
+    source,
+    directions,
+    nreflections: int,
+    *,
+    ray_chunk: int | None = None,
+    impl: str = "auto",
+    device=None,
+) -> TraceOutputs:
+    """Dense trace of all rays (the host loop of rayverb_tpu/ops/trace.py,
+    :973): TraceOutputs in the caller's ray order, on the soup's device (a
+    Scene is compiled onto ``device``, None: the card).
+
+    ray_chunk None traces all rays in one pass when ``trace_bytes`` fits
+    the card's plan (render.memory_budget; no limit on the CPU), else in
+    chunks of the largest power of two of rays that fits; an explicit
+    ray_chunk (DEFAULT_RAY_CHUNK is the JAX default) chunks at that size.
+    As in the JAX function, the rays are padded with +z directions to a
+    multiple of the chunk, the chunks' outputs are concatenated on the
+    device and cut back to N. The chunk size never changes results, and
+    neither does ray order: the rays are traced in render.ray_schedule's
+    order, as render_fused traces them, and the outputs are put back in the
+    caller's order."""
+    from .render import choose_ray_chunk, memory_budget, ray_schedule
+
+    soup = (
+        scene_or_soup
+        if isinstance(scene_or_soup, TriangleSoup)
+        else soup_from_scene(scene_or_soup, device=device)
+    )
+    directions = np.asarray(directions, dtype=np.float32)
+    n = directions.shape[0]
+    if n == 0:
+        raise ValueError("need at least one ray")
+    nblocks = soup.block_aabb.shape[0]
+    chunk = choose_ray_chunk(n, nreflections, nblocks, ray_chunk,
+                             memory_budget(soup.device), plan=trace_bytes)
+    order, resort = ray_schedule(directions, nblocks)
+    if order is not None:
+        directions = directions[order]
+    nchunks = -(-n // chunk)
+    if nchunks * chunk != n:
+        pad_dirs = np.zeros((nchunks * chunk - n, 3), dtype=np.float32)
+        pad_dirs[:, 2] = 1.0
+        directions = np.concatenate([directions, pad_dirs], axis=0)
+    pieces = [
+        _trace_impl(
+            soup,
+            mic,
+            source,
+            directions[c * chunk : (c + 1) * chunk],
+            nreflections=nreflections,
+            impl=impl,
+            resort=resort,
+        )
+        for c in range(nchunks)
+    ]
+    fields = [
+        pieces[0][i] if nchunks == 1 else torch.cat([p[i] for p in pieces])[:n]
+        for i in range(len(TraceOutputs._fields))
+    ]
+    del pieces
+    if order is not None:
+        inv = _inv_permutation(torch.from_numpy(order).to(soup.device))
+        fields = [f[inv] for f in fields]
+    return TraceOutputs(*fields)

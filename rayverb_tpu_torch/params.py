@@ -22,9 +22,10 @@ SOUP_FIELDS = (
 )
 
 
-def soup_from_numpy(*, device="cpu", **fields) -> TriangleSoup:
-    """TriangleSoup on ``device`` from the soup's numpy fields (float32,
-    surface integer). Checks the sweep table's shape against SWEEP_BLOCK."""
+def soup_from_numpy(*, device=None, **fields) -> TriangleSoup:
+    """TriangleSoup on ``device`` (None: the card, device.resolve_device)
+    from the soup's numpy fields (float32, surface integer). Checks the
+    sweep table's shape against SWEEP_BLOCK."""
     missing = set(SOUP_FIELDS) - set(fields)
     if missing:
         raise ValueError(f"missing soup fields: {sorted(missing)}")

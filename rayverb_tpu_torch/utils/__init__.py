@@ -1,1 +1,6 @@
-from .directions import morton_sort, random_directions, uniform_directions
+from .directions import (
+    morton_order,
+    morton_sort,
+    random_directions,
+    uniform_directions,
+)

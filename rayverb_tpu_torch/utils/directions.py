@@ -54,12 +54,18 @@ def uniform_directions(num: int) -> np.ndarray:
     ).astype(np.float32)
 
 
+def morton_order(directions: np.ndarray) -> np.ndarray:
+    """The permutation of morton_sort: indices that order unit directions
+    along a Morton (Z-order) curve (stable)."""
+    d = np.asarray(directions, np.float32)
+    q = np.clip((d + 1.0) * 0.5 * 1023.0, 0, 1023).astype(np.uint32)
+    return np.argsort(_morton3(q), kind="stable")
+
+
 def morton_sort(directions: np.ndarray) -> np.ndarray:
     """Reorder unit directions along a Morton (Z-order) curve so that
     consecutive rays point into nearby solid angles. Ray order carries no
     meaning; neighbouring rays in one thread block then share the triangle
     tiles they need, which is what the sweep kernel's tile skip feeds on."""
     d = np.asarray(directions, np.float32)
-    q = np.clip((d + 1.0) * 0.5 * 1023.0, 0, 1023).astype(np.uint32)
-    order = np.argsort(_morton3(q), kind="stable")
-    return d[order]
+    return d[morton_order(d)]

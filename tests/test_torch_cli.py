@@ -84,18 +84,70 @@ def test_cli_errors_match_reference(bedroom_args, tmp_path, capsys, case):
 
 
 @pytest.mark.parametrize(
-    "extra, message",
-    [
-        (["--pipeline", "modular"], "--pipeline modular is not ported yet"),
-        (["--save-raw", "x.npz"], "--save-raw is not ported yet"),
-        (["--from-raw", "x.npz"], "--from-raw is not ported yet"),
-        (["--dump-paths", "x.jsonl"], "--dump-paths is not ported yet"),
-    ],
+    "flag",
+    ["--pipeline modular", "--save-raw", "--from-raw", "--dump-paths",
+     "--filter-method fft"],
 )
-def test_cli_unported_flags(bedroom_args, tmp_path, capsys, extra, message):
-    rc = port_cli.main(bedroom_args + [str(tmp_path / "ir.wav"), "--device", "cpu"] + extra)
-    assert rc == 1
-    assert message in capsys.readouterr().err
+def test_cli_unported_flags(bedroom_args, tmp_path, capsys, flag):
+    """The modular pipeline's flags, once refused (the name is kept), now
+    work on the CPU: exit 0 and a stereo WAV; --save-raw writes a file both
+    packages load; --from-raw gives the direct modular render's IR;
+    --dump-paths writes one JSON line per ray in the JAX schema, equal to
+    the JAX CLI's dump for the same seed (positions within 1e-4 m and band
+    means within 1e-6, the trace tolerances of tests/test_torch_trace.py);
+    --filter-method fft gives the scan render's IR within -60 dB."""
+    from rayverb_tpu import engine as jax_engine
+    from rayverb_tpu_torch import engine as port_engine
+
+    base = bedroom_args + ["--device", "cpu", "--seed", "5"]
+    out = tmp_path / "ir.wav"
+    raw = str(tmp_path / "raw.npz")
+    extra = {
+        "--pipeline modular": ["--pipeline", "modular"],
+        "--save-raw": ["--save-raw", raw],
+        "--from-raw": ["--from-raw", raw],
+        "--dump-paths": ["--dump-paths", str(tmp_path / "p.jsonl")],
+        "--filter-method fft": ["--pipeline", "modular", "--filter-method", "fft"],
+    }[flag]
+    direct = tmp_path / "direct.wav"
+    if flag in ("--from-raw", "--filter-method fft"):
+        rc = port_cli.main(base[:3] + [str(direct)] + base[3:] + ["--save-raw", raw])
+        assert rc == 0, capsys.readouterr().err
+    rc = port_cli.main(base[:3] + [str(out)] + base[3:] + extra + ["--stats"])
+    err = capsys.readouterr().err
+    assert rc == 0, err
+    assert "phases [" in err and "process:" in err
+    data, sr, bits = read_audio(str(out))
+    assert (sr, bits) == (8000.0, 16)
+    assert data.shape[0] == 2 and data.shape[1] > 100
+    assert np.all(np.isfinite(data)) and np.abs(data).max() > 0.5
+    if flag == "--save-raw":
+        for engine in (port_engine, jax_engine):
+            res = engine.load_raw(raw)
+            assert res.num_impulses > 64 * 6 and res.volume.shape == (res.num_impulses, 8)
+    elif flag == "--from-raw":
+        assert "trace:" not in err
+        want = read_audio(str(direct))[0]
+        assert data.shape == want.shape and np.array_equal(data, want)
+    elif flag == "--filter-method fft":
+        want = read_audio(str(direct))[0]
+        n = min(data.shape[1], want.shape[1])
+        assert abs(data.shape[1] - want.shape[1]) <= 2
+        assert np.abs(data[:, :n] - want[:, :n]).max() < 1e-3 * np.abs(want).max()
+    elif flag == "--dump-paths":
+        jax_out = tmp_path / "jax.wav"
+        rc = jax_cli.main(bedroom_args + [str(jax_out), "--seed", "5", "--dump-paths",
+                                          str(tmp_path / "j.jsonl")])
+        assert rc == 0, capsys.readouterr().err
+        got = [json.loads(line) for line in (tmp_path / "p.jsonl").read_text().splitlines()]
+        want = [json.loads(line) for line in (tmp_path / "j.jsonl").read_text().splitlines()]
+        assert len(got) == len(want) == 64
+        for g, w in zip(got, want):
+            assert len(g) == len(w) == 6
+            for ge, we in zip(g, w):
+                assert set(ge) == set(we) == {"position", "volume"}
+                np.testing.assert_allclose(ge["position"], we["position"], rtol=0, atol=1e-4)
+                assert abs(ge["volume"] - we["volume"]) <= 1e-6
 
 
 def test_cli_hrtf_config_not_ported(bedroom_args, tmp_path, capsys, monkeypatch):

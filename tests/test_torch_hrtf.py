@@ -201,7 +201,9 @@ def test_attenuate_dispatch_matches_jax(rng):
                                      {"direction": [0, 0, 1], "shape": 1.0}]}):
         doc = json.dumps(dict(_doc("large_square", "all", False), attenuation_model=att))
         wv, wt = jax_att.attenuate(res, jax_parse_config(doc).attenuation_model)
-        gv, gt = port_att.attenuate(res, port_parse_config(doc).attenuation_model)
+        gv, gt = port_att.attenuate(
+            res, port_parse_config(doc).attenuation_model, device="cpu"
+        )
         assert gv.shape == (2, m, 8) and gt.shape == (2, m)
         np.testing.assert_allclose(gv.numpy(), np.asarray(wv), rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(gt.numpy(), np.asarray(wt), rtol=2.5e-7, atol=1e-8)

@@ -111,7 +111,7 @@ def test_plain_matches_pallas_interpret(assets_dir, rng, name, center, spread, n
     ref = closest_hit_pallas(o, d, jax_isect.soup_from_scene(scene), interpret=True)
     got = port_isect.closest_hit(
         torch.from_numpy(o), torch.from_numpy(d),
-        port_isect.soup_from_scene(scene), impl="plain",
+        port_isect.soup_from_scene(scene, device="cpu"), impl="plain",
     )
     _assert_hits_agree(got, ref.hit, ref.t, ref.index, rtol=1e-5)
 
@@ -123,7 +123,7 @@ def test_plain_matches_xla(assets_dir, rng, name, spread):
     o, d = _rays(rng, 400, center, spread)
     ref = jax_isect.closest_hit_xla(o, d, jax_isect.soup_from_scene(scene))
     got = port_isect.closest_hit(
-        torch.from_numpy(o), torch.from_numpy(d), port_isect.soup_from_scene(scene)
+        torch.from_numpy(o), torch.from_numpy(d), port_isect.soup_from_scene(scene, device="cpu")
     )
     _assert_hits_agree(got, ref.hit, ref.t, ref.index, rtol=1e-5)
 
@@ -132,7 +132,7 @@ def test_t_max_is_inclusive(assets_dir, rng):
     """A hit exactly at t_max is kept; a bound just below it drops it
     (the XLA sweep's t <= t_max)."""
     scene = _scene(assets_dir, "random_pillars")
-    soup = port_isect.soup_from_scene(scene)
+    soup = port_isect.soup_from_scene(scene, device="cpu")
     o, d = _rays(rng, 200, scene.bounds.mean(axis=0), 3.0)
     o, d = torch.from_numpy(o), torch.from_numpy(d)
     free = port_isect.closest_hit(o, d, soup)
@@ -149,7 +149,7 @@ def test_t_max_is_inclusive(assets_dir, rng):
 def test_decide_verdicts_match(large_square_soup, large_square_scene, rng):
     """Any-hit rows (t_decide) give the same visibility verdict as the
     exact XLA sweep, as in test_decide_mode_verdicts_match."""
-    soup = port_isect.soup_from_scene(large_square_scene)
+    soup = port_isect.soup_from_scene(large_square_scene, device="cpu")
     center = np.asarray(large_square_soup.bounds).mean(axis=0)
     o = (center + (rng.random((256, 3)) - 0.5) * 4.0).astype(np.float32)
     d = rng.standard_normal((256, 3)).astype(np.float32)
@@ -171,7 +171,7 @@ def test_decided_rows_stop_refining(assets_dir, rng):
     further block: it executes no more pair tests than the exact row and
     its witness still lies before the threshold."""
     scene = _scene(assets_dir, "random_pillars")
-    soup = port_isect.soup_from_scene(scene)
+    soup = port_isect.soup_from_scene(scene, device="cpu")
     o, d = _rays(rng, 300, scene.bounds.mean(axis=0), 3.0)
     o, d = torch.from_numpy(o), torch.from_numpy(d)
     inf = torch.full((300,), float("inf"))
@@ -187,7 +187,7 @@ def test_decided_rows_stop_refining(assets_dir, rng):
 
 
 def test_cuda_impl_on_cpu_tensor_raises(large_square_scene):
-    soup = port_isect.soup_from_scene(large_square_scene)
+    soup = port_isect.soup_from_scene(large_square_scene, device="cpu")
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]] * 4)
     with pytest.raises(ValueError, match="CUDA"):
@@ -208,7 +208,7 @@ def test_intersect_cuda_imports_without_nvcc():
 
 def test_executed_pairs_bounded_by_issued(assets_dir, rng):
     scene = _scene(assets_dir, "random_pillars")
-    soup = port_isect.soup_from_scene(scene)
+    soup = port_isect.soup_from_scene(scene, device="cpu")
     o, d = _rays(rng, 128, scene.bounds.mean(axis=0), 3.0)
     _, pairs = port_isect.closest_hit(
         torch.from_numpy(o), torch.from_numpy(d), soup, with_stats=True
@@ -219,7 +219,7 @@ def test_executed_pairs_bounded_by_issued(assets_dir, rng):
 
 
 def test_visible_matches_xla(large_square_scene, large_square_soup, rng):
-    soup = port_isect.soup_from_scene(large_square_scene)
+    soup = port_isect.soup_from_scene(large_square_scene, device="cpu")
     center = np.asarray(large_square_soup.bounds).mean(axis=0)
     a = (center + (rng.random((200, 3)) - 0.5) * 6.0).astype(np.float32)
     b = (center + (rng.random((200, 3)) - 0.5) * 6.0).astype(np.float32)

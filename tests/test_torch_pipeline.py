@@ -1,0 +1,349 @@
+"""The port's modular pipeline (rayverb_tpu_torch/pipeline.py) against the
+JAX package's, against the port's own fused render, and the fused render's
+scan and fir finalizes against the JAX package's.
+
+Criterion: -60 dB of peak (max error < 1e-3 of peak, forgiving
+single-sample displacement of an arrival that sits within a float32 ulp of
+a bin edge, as tests/test_torch_render.py). The two packages trace with
+sweeps that round differently (the XLA sweep against the Woop-row sweep),
+and sum bins in another order.
+
+The port's modular render is held to its fused render as
+tests/test_render_fused.py holds the JAX package's two paths: with
+trim_predelay off, sample for sample; with it on, the fused render shifts
+the predelay by whole bins (a documented deviation), so it is held to the
+untrimmed modular render advanced by round(predelay * sr) samples.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from rayverb_tpu import engine as je
+from rayverb_tpu import load_scene
+from rayverb_tpu import pipeline as jp
+from rayverb_tpu.config.schema import FilterType as JaxFilter
+from rayverb_tpu.config.schema import parse_config as jax_parse_config
+from rayverb_tpu.ops import render as jax_render
+from rayverb_tpu.utils.directions import random_directions
+from rayverb_tpu_torch import engine as pe
+from rayverb_tpu_torch import pipeline as pp
+from rayverb_tpu_torch.config.schema import FilterType as PortFilter
+from rayverb_tpu_torch.config.schema import parse_config as port_parse_config
+from rayverb_tpu_torch.ops import biquad_cuda, filters
+from rayverb_tpu_torch.ops import render as port_render
+from rayverb_tpu_torch.utils.diagnostics import PhaseTimer
+
+torch.set_num_threads(1)
+
+DB60 = 1e-3
+
+SPEAKERS = {
+    "speakers": [
+        {"direction": [0, 0, 1], "shape": 0.5},
+        {"direction": [1, 0, 0], "shape": 0.0},
+    ]
+}
+HRTF = {"hrtf": {"facing": [0, 0, 1], "up": [0, 1, 0]}}
+
+
+def _doc(**overrides):
+    doc = {
+        "rays": 128,
+        "reflections": 6,
+        "sample_rate": 16000,
+        "bit_depth": 16,
+        "source_position": [0.031, 1.989, 2.007],
+        "mic_position": [0.013, 2.017, 0.021],
+        "attenuation_model": SPEAKERS,
+        "filter": "linkwitz_riley",
+        "trim_predelay": True,
+        "trim_tail": True,
+        "output_mode": "all",
+        "seed": 3,
+    }
+    doc.update(overrides)
+    return json.dumps(doc)
+
+
+def _assert_within_60db(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    n = min(got.shape[-1], want.shape[-1])
+    assert n > 20 and got.shape[0] == want.shape[0]
+    peak = np.abs(want).max()
+    assert peak > 0
+    g = got[:, :n]
+    errs = [np.abs(g - np.roll(want, s, axis=-1)[:, :n]) for s in (0, 1, -1)]
+    err = np.minimum(np.minimum(errs[0], errs[1]), errs[2]).max() / peak
+    assert err < DB60, f"max error {err:.2e} exceeds -60 dB"
+    assert np.abs(got[:, n:]).max(initial=0.0) / peak < DB60
+    assert np.abs(want[:, n:]).max(initial=0.0) / peak < DB60
+
+
+@pytest.fixture(scope="module")
+def scenes(assets_dir):
+    return {
+        "large_square": load_scene(
+            str(assets_dir / "test_models" / "large_square.obj"),
+            str(assets_dir / "materials" / "mat.json"),
+        ),
+        "vault": load_scene(
+            str(assets_dir / "test_models" / "vault.obj"),
+            str(assets_dir / "materials" / "vault.json"),
+        ),
+    }
+
+
+def _vault_doc(assets_dir, **overrides):
+    """vault.json (speakers, Linkwitz-Riley, output_mode all, both trims)
+    cut to a few hundred rays and reflections at 16 kHz."""
+    doc = json.loads((assets_dir / "configs" / "vault.json").read_text())
+    doc.update(rays=300, reflections=6, sample_rate=16000, bit_depth=16, seed=3)
+    doc.update(overrides)
+    return json.dumps(doc)
+
+
+def _case(scenes, assets_dir, case):
+    if case == "vault":
+        return _vault_doc(assets_dir), scenes["vault"]
+    over = {
+        "box_trims": {},
+        "box_no_trims": {"trim_predelay": False, "trim_tail": False},
+        "box_image_only": {"output_mode": "image_only", "remove_direct": True},
+        "box_onepass": {"filter": "onepass"},
+        "box_hrtf": {"attenuation_model": HRTF, "filter": "twopass"},
+    }[case]
+    return _doc(**over), scenes["large_square"]
+
+
+def feed_jax_trace(monkeypatch, scene):
+    """Replace the port engine's dense trace by the JAX package's trace of
+    the same rays (the records the JAX pipeline renders), as CPU tensors."""
+    from rayverb_tpu.ops.intersect import soup_from_scene
+    from rayverb_tpu.ops.trace import trace as jax_trace
+    from rayverb_tpu_torch.ops.trace import TraceOutputs
+
+    jsoup = soup_from_scene(scene)
+
+    def trace(_soup, mic, source, directions, nreflections, **_):
+        out = jax_trace(jsoup, mic, source, directions, nreflections)
+        fields = [torch.from_numpy(np.array(x)) for x in out]
+        fields[-1] = fields[-1].long()
+        return TraceOutputs(*fields)
+
+    monkeypatch.setattr(pe, "trace", trace)
+
+
+def _compare_modular(scenes, assets_dir, case, method):
+    text, scene = _case(scenes, assets_dir, case)
+    jcfg, pcfg = jax_parse_config(text), port_parse_config(text)
+    dirs = random_directions(jcfg.rays, seed=jcfg.seed)
+    want = jp.render(jcfg, scene, directions=dirs, filter_method=method)
+    got = pp.render(pcfg, scene, directions=dirs, filter_method=method, device="cpu")
+    assert got.channels.dtype == np.float32 and np.all(np.isfinite(got.channels))
+    _assert_within_60db(got.channels, want.channels)
+    assert got.predelay == pytest.approx(want.predelay, rel=1e-6, abs=1e-9)
+    assert got.raw.num_impulses == want.raw.num_impulses
+    assert tuple(got.attenuated_times.shape) == np.asarray(want.attenuated_times).shape
+    return got, want
+
+
+@pytest.mark.parametrize("method", ["scan", "fft"])
+@pytest.mark.parametrize("case", ["box_trims", "box_no_trims", "box_image_only",
+                                  "box_onepass", "box_hrtf", "vault"])
+def test_modular_render_matches_jax_on_shared_trace(scenes, assets_dir, monkeypatch,
+                                                    method, case):
+    """Every stage after the trace (dedup, attenuation, predelay, flatten,
+    filter bank, mixdown, trims) on the JAX trace's own records."""
+    text, scene = _case(scenes, assets_dir, case)
+    feed_jax_trace(monkeypatch, scene)
+    got, want = _compare_modular(scenes, assets_dir, case, method)
+    assert np.array_equal(got.attenuated_times.numpy(), np.asarray(want.attenuated_times))
+
+
+@pytest.mark.parametrize("method", ["scan", "fft"])
+@pytest.mark.parametrize("case", ["box_no_trims", "vault"])
+def test_modular_render_matches_jax(scenes, assets_dir, method, case):
+    """End to end, each package on its own trace. The two sweeps round
+    image-source times differently (within 2e-7 s, tests/
+    test_torch_trace.py); after the modular path's per-arrival predelay
+    subtraction, box_trims puts one strong image arrival 0.0013 samples
+    from a bin edge, on opposite sides in the two packages, beyond this
+    criterion's forgiveness (ROADMAP Queue 1 item 1 names the criterion
+    that would hold it). The shared-trace test above holds those cases."""
+    _compare_modular(scenes, assets_dir, case, method)
+
+
+def test_render_from_raw_matches_jax(scenes, tmp_path):
+    """A raw file written by the JAX package, rendered by both packages'
+    render_from_raw: the same impulses, so only filter arithmetic and bin
+    sums differ."""
+    text = _doc(attenuation_model=HRTF, filter="twopass")
+    jcfg = jax_parse_config(text)
+    raw = str(tmp_path / "raw.npz")
+    je.save_raw(raw, jp.render(jcfg, scenes["large_square"],
+                               directions=random_directions(128, seed=3)).raw)
+    want = jp.render_from_raw(jcfg, je.load_raw(raw))
+    timer = PhaseTimer()
+    got = pp.render_from_raw(port_parse_config(text), pe.load_raw(raw), device="cpu",
+                             timer=timer)
+    assert got.raytracer is None and got.channels.shape[0] == 2
+    assert [n for n, _ in timer.phases] == ["attenuate", "flatten", "process"]
+    _assert_within_60db(got.channels, want.channels)
+    np.testing.assert_allclose(got.channels, want.channels[:, : got.channels.shape[-1]],
+                               atol=1e-5)
+    with pytest.raises(RuntimeError, match="No raytrace results"):
+        pp.render_from_raw(port_parse_config(text),
+                           pe.RaytracerResults(np.zeros((0, 8)), np.zeros((0, 3)),
+                                               np.zeros(0), np.zeros(3)), device="cpu")
+
+
+def test_save_and_render_from_raw_is_bit_identical(scenes, tmp_path):
+    text = _doc(rays=96)
+    cfg = port_parse_config(text)
+    direct = pp.render(cfg, scenes["large_square"], device="cpu")
+    path = str(tmp_path / "raw.npz")
+    pe.save_raw(path, direct.raw)
+    again = pp.render_from_raw(cfg, pe.load_raw(path), device="cpu")
+    assert again.channels.tobytes() == direct.channels.tobytes()
+    assert pp.select_results(direct.raytracer, cfg).num_impulses == direct.raw.num_impulses
+
+
+@pytest.mark.parametrize("method", ["scan", "fft"])
+@pytest.mark.parametrize("model", ["speakers", "hrtf"])
+def test_modular_matches_fused(scenes, method, model):
+    """The port's two paths on the same rays, trim_predelay off (see the
+    module docstring): within fp noise, as the JAX package's own
+    test_render_fused.compare (atol 2e-4 of peak)."""
+    att = SPEAKERS if model == "speakers" else HRTF
+    text = _doc(rays=96, reflections=12, attenuation_model=att, trim_predelay=False,
+                trim_tail=False, seed=11)
+    cfg = port_parse_config(text)
+    dirs = random_directions(cfg.rays, seed=cfg.seed)
+    fused, _ = port_render.render_fused(scenes["large_square"], cfg, dirs, device="cpu")
+    modular = pp.render(cfg, scenes["large_square"], directions=dirs, filter_method=method,
+                        device="cpu").channels
+    n = min(fused.shape[-1], modular.shape[-1])
+    assert n > 50
+    scale = np.abs(modular).max()
+    np.testing.assert_allclose(fused[:, :n] / scale, modular[:, :n] / scale, atol=2e-4)
+    assert np.abs(fused[:, n:]).max(initial=0.0) < 2e-4
+    assert np.abs(modular[:, n:]).max(initial=0.0) < 2e-4
+
+
+@pytest.mark.parametrize("method", ["scan", "fft"])
+def test_modular_matches_fused_trimmed(scenes, method):
+    """With trim_predelay on, the contract of the JAX package's
+    test_render_fused._compare_predelay: the fused render equals the
+    modular render without the predelay trim, advanced by round(predelay *
+    sr) samples (atol 2e-4 of peak). It is exact for a causal filter, so
+    it is held with the one-pass biquad: a zero-phase bank's reverse pass
+    rings before the first arrival, and the fused render cuts that ringing
+    at bin 0 while the untrimmed modular render carries it into the next
+    forward pass."""
+    text = _doc(rays=96, reflections=12, filter="onepass", trim_tail=False, seed=11)
+    cfg = port_parse_config(text)
+    dirs = random_directions(cfg.rays, seed=cfg.seed)
+    fused, info = port_render.render_fused(scenes["large_square"], cfg, dirs, device="cpu")
+    assert info["predelay"] > 0
+    shift = int(np.floor(info["predelay"] * cfg.sample_rate + 0.5))
+    nopd = port_parse_config(json.dumps(dict(json.loads(text), trim_predelay=False)))
+    modular = pp.render(nopd, scenes["large_square"], directions=dirs, filter_method=method,
+                        device="cpu").channels[:, shift:]
+    n = min(fused.shape[-1], modular.shape[-1])
+    assert n > 50
+    scale = np.abs(modular).max()
+    np.testing.assert_allclose(fused[:, :n] / scale, modular[:, :n] / scale, atol=2e-4)
+
+
+def test_fused_scan_finalize_matches_jax(scenes, monkeypatch):
+    """RAYVERB_FINALIZE_FILTER=scan in both packages: the scan finalize
+    (reverse scans on the unflipped signal, masked to the content length),
+    against the JAX one and against the port's fft finalize."""
+    text = _doc()
+    dirs = random_directions(128, seed=3)
+    scene = scenes["large_square"]
+    fft, _ = port_render.render_fused(scene, port_parse_config(text), dirs, device="cpu")
+    monkeypatch.setenv("RAYVERB_FINALIZE_FILTER", "scan")
+    want, _ = jax_render.render_fused(scene, jax_parse_config(text), dirs)
+    got, info = port_render.render_fused(scene, port_parse_config(text), dirs, device="cpu")
+    assert info["filter_method"] == "scan"
+    _assert_within_60db(got, want)
+    _assert_within_60db(got, fft)
+
+
+def test_fused_scan_finalize_goes_through_biquad_onepass(scenes, monkeypatch):
+    """Each scan pass is one biquad_onepass call over every channel and
+    band, with the content length; reversed passes run reversed."""
+    calls = []
+    real = filters.biquad_onepass
+
+    def spy(data, coeffs, *, reverse=False, content_len=None):
+        calls.append((tuple(data.shape), reverse, content_len))
+        return real(data, coeffs, reverse=reverse, content_len=content_len)
+
+    monkeypatch.setattr(filters, "biquad_onepass", spy)
+    monkeypatch.setenv("RAYVERB_FINALIZE_FILTER", "scan")
+    _, info = port_render.render_fused(scenes["large_square"], port_parse_config(_doc()),
+                                       random_directions(64, seed=2), device="cpu")
+    assert [c[1] for c in calls] == [False, True, False, True]
+    assert all(c[0][:2] == (2, 8) and c[2] == info["content_length"] for c in calls)
+
+
+def test_fused_fir_finalize_matches_jax(scenes):
+    """The windowed-sinc bank in the fused render (one FIR convolution per
+    band; the IR grows by KERNEL_LENGTH - 1)."""
+    text = _doc(filter="sinc", trim_tail=False)
+    dirs = random_directions(128, seed=3)
+    scene = scenes["large_square"]
+    want, winfo = jax_render.render_fused(scene, jax_parse_config(text), dirs)
+    got, ginfo = port_render.render_fused(scene, port_parse_config(text), dirs, device="cpu")
+    assert ginfo["filter_method"] == "fir"
+    assert got.shape == np.asarray(want).shape
+    _assert_within_60db(got, want)
+    modular = pp.render(port_parse_config(text), scene, directions=dirs, device="cpu").channels
+    assert got.shape[-1] >= modular.shape[-1] - 2
+
+
+@pytest.mark.parametrize("filt, method", [("linkwitz_riley", "scan"), ("twopass", "scan"),
+                                          ("onepass", "scan"), ("sinc", None),
+                                          ("sinc", "scan")])
+def test_finalize_filter_params_scan_and_fir_byte_equal(filt, method):
+    want = jax_render.finalize_filter_params(JaxFilter(filt), 16000.0, 60.0, 4096,
+                                             method=method)
+    got = port_render.finalize_filter_params(PortFilter(filt), 16000.0, 60.0, 4096,
+                                             method=method)
+    assert got[1:] == tuple(want[1:])
+    assert got[0].tobytes() == np.asarray(want[0]).tobytes()
+
+
+def test_finalize_method_switch(monkeypatch):
+    monkeypatch.delenv("RAYVERB_FINALIZE_FILTER", raising=False)
+    assert port_render._finalize_method(PortFilter.LINKWITZ_RILEY) == "fft"
+    assert port_render._finalize_method(PortFilter.WINDOWED_SINC, "scan") == "fir"
+    monkeypatch.setenv("RAYVERB_FINALIZE_FILTER", "scan")
+    assert port_render._finalize_method(PortFilter.TWOPASS if hasattr(PortFilter, "TWOPASS")
+                                        else PortFilter.BIQUAD_TWOPASS) == "scan"
+    monkeypatch.setenv("RAYVERB_FINALIZE_FILTER", "iir")
+    with pytest.raises(ValueError, match="finalize filter method"):
+        port_render._finalize_method(PortFilter.LINKWITZ_RILEY)
+
+
+def test_pipeline_phases_and_device(scenes):
+    timer = PhaseTimer(device="cpu")
+    res = pp.render(port_parse_config(_doc(rays=32)), scenes["large_square"], device="cpu",
+                    timer=timer)
+    assert [n for n, _ in timer.phases] == ["trace", "population", "attenuate", "flatten",
+                                            "process"]
+    assert "total:" in timer.report()
+    assert res.raytracer.outputs.diffuse_time.shape == (32, 6)
+    assert biquad_cuda.launches == 0  # the CPU never reaches the kernel
+    with pytest.raises(ValueError, match="trace_impl"):
+        pp.render(port_parse_config(_doc()), scenes["large_square"], device="cpu",
+                  trace_impl="xla")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pp.render(port_parse_config(_doc()), scenes["large_square"])

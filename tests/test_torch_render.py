@@ -178,11 +178,13 @@ def test_finalize_filter_params_byte_equal(filt):
     from rayverb_tpu.config.schema import FilterType as JaxFilter
     from rayverb_tpu_torch.config.schema import FilterType as PortFilter
 
-    want, _, wnfft, _ = jax_render.finalize_filter_params(
+    want, wflips, wnfft, wmethod = jax_render.finalize_filter_params(
         JaxFilter(filt), 16000.0, 60.0, 4096, method="fft"
     )
-    got, gnfft = port_render.finalize_filter_params(PortFilter(filt), 16000.0, 60.0, 4096)
-    assert gnfft == wnfft
+    got, gflips, gnfft, gmethod = port_render.finalize_filter_params(
+        PortFilter(filt), 16000.0, 60.0, 4096, method="fft"
+    )
+    assert (gflips, gnfft, gmethod) == (wflips, wnfft, wmethod) == (gflips, gnfft, "fft")
     assert got.tobytes() == np.asarray(want).tobytes()
 
 
@@ -201,7 +203,9 @@ def test_sorted_binning_matches_jax(rng):
     mic = np.float32([0.1, 0.2, 0.3])
     doc = json.dumps(_doc("large_square", "all", False))
     jspec = jax_render.make_atten_spec(jp(doc).attenuation_model)
-    pspec = port_render.make_atten_spec(port_parse_config(doc).attenuation_model)
+    pspec = port_render.make_atten_spec(
+        port_parse_config(doc).attenuation_model, device="cpu"
+    )
     import jax
 
     binned = jax.jit(

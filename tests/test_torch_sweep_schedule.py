@@ -120,7 +120,7 @@ def _soup(assets_dir, name):
         str(assets_dir / "test_models" / f"{name}.obj"),
         str(assets_dir / "materials" / "mat.json"),
     )
-    return port_isect.soup_from_scene(scene), scene.bounds
+    return port_isect.soup_from_scene(scene, device="cpu"), scene.bounds
 
 
 def _batch(seed, n, bounds, decided):
