@@ -46,7 +46,9 @@ Phases, each printed as one JSON line with its wall time:
               8,192 Morton-sorted primary rays, kernel against plain, bit for
               bit (results, counters, order tables)
   8. north    the north star: 1,000,000 rays x 16 reflections through the
-              hall, stereo HRTF, cold and warm, with walls, phases, the
+              hall (and the hall's load time through the pure-Python OBJ
+              reader, beside the card's name), stereo HRTF, cold and warm,
+              with walls, phases, the
               chunk chosen, peak device memory, executed pairs by kind and
               the order kernel's time at this table (1M primary rays, equal
               to its plain version; torch.argsort of its keys beside it);
@@ -62,7 +64,9 @@ Phases, each printed as one JSON line with its wall time:
  10. biquad   the biquad scan kernel against its plain version, bit for
               bit, on the card and on the CPU (2 channels x 8 bands x
               16,384 samples of the vault's lowpass, forward and reverse,
-              with and without a content length); the vault's four-pass
+              with and without a content length, and with ragged per-series
+              content lengths: 0, 1, around the 4,096-sample tiles, and
+              full, in one launch); the vault's four-pass
               bank at 524,288 samples against scipy's float64 lfilter
               (1e-4 of peak); ms per pass, bytes and dependency bounds
  11. modular  the CLI with --pipeline modular on the full vault, cold and
@@ -80,7 +84,20 @@ Phases, each printed as one JSON line with its wall time:
               population (bit-identical IRs), --dump-paths (one line per
               ray in the JAX schema, equal to the trace's records), at
               2,000 rays: host zlib and JSON set this phase's walls
- 14. kernels  one JSON line per the port's kernel table (the sweep, the
+ 14. datagen  batched IR datagen (parallel.render_irs_batched): BASELINE
+              config 5 at full size (the vault, 64 pairs x 4,096 rays x 16
+              reflections, stereo HRTF, 16 kHz), cold and warm, with walls,
+              pairs/s, ray-bounces/s, peak memory beside the plan, pairs per
+              pass, 33 sweeps per pass each through the order and sweep
+              kernels, executed pairs by kind, and one warm batch under
+              torch.profiler; pairs 0, 21, 42, 63 (normalize off) against
+              render_fused of the same pair (1e-5 of peak, equal contents);
+              3 pairs on large_square with the kernels and the plain
+              versions (bit-identical, equal counters) and on the CPU (-60
+              dB); 8 pairs through the scan finalize with the
+              Linkwitz-Riley bank (one biquad launch per pass for all pairs)
+              against the fft one (-60 dB); 8 pairs on room1.dxf
+ 15. kernels  one JSON line per the port's kernel table (the sweep, the
               block order, the unpack kernel with the card's launch floor,
               and the biquad scan); the device line also carries the
               instruction counts of the sweep kernel's loops, read from
@@ -858,9 +875,10 @@ def _phase_hall(ph, dev, scene):
     return rec
 
 
-def _phase_north_star(ph, dev, scene):
+def _phase_north_star(ph, dev, scene, hall_load_s):
     """The north star, cold and warm, then a one-pass against a chunked
-    render of a smaller population."""
+    render of a smaller population; the hall's load time (the pure-Python
+    OBJ reader, ``hall_load_s``) beside the card's name."""
     import numpy as np
     import torch
 
@@ -939,6 +957,8 @@ def _phase_north_star(ph, dev, scene):
                                        ray_chunk=CHUNK_CHECK[1])
     err = _ir_error(chunked, one)
     ph.out.update({
+        "card": _nvidia_smi(), "hall_load_scene_s_pure_python_obj": hall_load_s,
+        "hall_triangles": scene.num_triangles,
         "table_blocks": nb, "rays": cfg.rays,
         "reflections": cfg.reflections, "runs": runs,
         "order_ms_per_launch_1M_rays": order_ms,
@@ -1068,6 +1088,10 @@ def _unpack_record(soup, args, order, slices, m):
 # renders give the scan) against scipy's float64 lfilter
 BIQUAD_CHECK_SAMPLES = 16_384
 BIQUAD_CHECK_CONTENT = 12_345
+# per-series content lengths of the ragged check, one per series of the
+# vault's bank (the kernel's tiles are 4,096 samples)
+BIQUAD_RAGGED = (0, 1, 4095, 4096, 4097, 8191, 8192, 8193, 100, 12_345, 16_383, 16_384,
+                 16_384, 2048, 6000, 9999)
 BIQUAD_FULL_SAMPLES = 524_288
 # the full-length check's tolerance, relative to the float64 reference's
 # peak: the float32 state drifts from float64 over the series, and the JAX
@@ -1176,6 +1200,24 @@ def _phase_biquad(ph, dev):
                 "max_abs_err": float((kern - plain).abs().max()),
                 "peak": float(plain.abs().max()),
             })
+    # ragged per-series content lengths (the batched finalize's): 0, 1,
+    # around the kernel's tile edges, and full, one launch for all series
+    lens = torch.tensor(BIQUAD_RAGGED[:series], dtype=torch.int32, device=dev)
+    for coeffs, reverse in passes[:2]:
+        kern = biquad_cuda.biquad_scan_cuda(x, coeffs, reverse=reverse, content_len=lens)
+        plain = biquad_onepass_plain(x, coeffs, reverse=reverse, content_len=lens)
+        cpu = biquad_onepass_plain(x.cpu(), coeffs.cpu(), reverse=reverse, content_len=lens.cpu())
+        torch.cuda.synchronize()
+        tails = sum(int((kern[i, int(n):].view(torch.int32) != 0).sum())
+                    for i, n in enumerate(lens.tolist()))
+        cases.append({
+            "reverse": reverse, "content_len": lens.tolist(),
+            "mismatch": _bit_mismatch(kern, plain),
+            "mismatch_cpu": _bit_mismatch(kern, cpu),
+            "tail_not_plus_zero": tails,
+            "max_abs_err": float((kern - plain).abs().max()),
+            "peak": float(plain.abs().max()),
+        })
     ph.out["cases"] = cases
     if any(c["mismatch"] or c["mismatch_cpu"] or c["tail_not_plus_zero"] for c in cases):
         raise AssertionError(f"biquad kernel != plain: {cases}")
@@ -1419,6 +1461,392 @@ def _phase_raw_and_dump(ph, dev, tmp):
         raise AssertionError(f"raw round trip or path dump failed: {ph.out}")
 
 
+# BASELINE.json config 5 (scripts/bench_datagen.py:46-74, bench.py:180-215):
+# 64 source/receiver pairs x 4,096 rays x 16 reflections through the vault,
+# stereo HRTF facing +z, 16 kHz, trim_tail off; the config's source and mic
+# are replaced per pair
+DATAGEN = {
+    "rays": 4096,
+    "reflections": 16,
+    "sample_rate": 16000,
+    "bit_depth": 16,
+    "source_position": [0, 0, 0],
+    "mic_position": [0, 0, 0],
+    "attenuation_model": {"hrtf": {"facing": [0, 0, 1], "up": [0, 1, 0]}},
+    "trim_tail": False,
+}
+DATAGEN_PAIRS = 64
+# the pairs held to render_fused of the same pair, and the scan batch's size
+DATAGEN_SINGLE = (0, 21, 42, 63)
+DATAGEN_SCAN_PAIRS = 8
+# the DXF batch: room1.dxf with mat.json, config 5 at this many pairs
+DATAGEN_DXF_PAIRS = 8
+# config 5's named buffers reckoned from the shapes (bytes): the bank, the
+# diffuse row buffers, the image records, the mirrored chains at bounce 8 and
+# the largest image sweep's order table; one pass
+DATAGEN_PLAN_BYTES = {"bank": 134e6, "row_buffers": 201e6, "image_records": 150e6,
+                      "mirrored_chains": 85e6, "order_table": 12e6}
+
+
+def _datagen_inputs(scene, pairs, rays):
+    """Config 5's pairs (scripts/bench_datagen.py:66-74): sources and mics
+    from default_rng(17) at 20-80 % of the scene's bounds, ray set i from
+    random_directions(rays, seed=100 + i)."""
+    import numpy as np
+
+    from rayverb_tpu_torch.utils.directions import random_directions
+
+    rng = np.random.default_rng(17)
+    lo, hi = np.asarray(scene.bounds)
+    span = hi - lo
+    sources = (lo + span * (0.2 + 0.6 * rng.random((pairs, 3)))).astype(np.float32)
+    mics = (lo + span * (0.2 + 0.6 * rng.random((pairs, 3)))).astype(np.float32)
+    dirs = np.stack([random_directions(rays, seed=100 + i) for i in range(pairs)])
+    return sources, mics, dirs
+
+
+def _per_pair_peak_ok(irs):
+    import torch
+
+    peaks = irs.abs().amax(dim=(1, 2))
+    return bool(torch.isfinite(irs).all()) and bool((peaks > 0).all())
+
+
+def _datagen_run(label, scene, cfg, sources, mics, dirs, dev, **kw):
+    """One batch with stats and executed-pair counters, the kernels'
+    counts reset just before it and read just after, and the peak device
+    memory of the call."""
+    import torch
+
+    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
+    from rayverb_tpu_torch.parallel.datagen import render_irs_batched
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with mock.patch.dict(os.environ, RAYVERB_SWEEP_STATS="1"):
+        intersect_cuda.launches = 0
+        intersect_cuda.order_launches = 0
+        biquad_cuda.launches = 0
+        t0 = time.perf_counter()
+        irs, contents, info = render_irs_batched(scene, cfg, sources, mics, dirs, device=dev,
+                                                 stats=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (intersect_cuda.launches, intersect_cuda.order_launches,
+                    biquad_cuda.launches)
+    run = {"run": label, "wall_s": wall, "pairs_per_s": len(sources) / wall,
+           "ray_bounces_per_s": dirs.shape[0] * dirs.shape[1] * cfg.reflections / wall,
+           "launches": launches[0], "order_launches": launches[1],
+           "biquad_launches": launches[2],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+           "shape": list(irs.shape), **info}
+    return irs, contents, run
+
+
+class _ScanCapture:
+    """Wraps biquad_cuda.biquad_scan_cuda while a batch runs and keeps the
+    inputs and output of its first forward and first reverse launch."""
+
+    def __enter__(self):
+        import torch
+
+        from rayverb_tpu_torch.ops import biquad_cuda
+
+        real = biquad_cuda.biquad_scan_cuda
+        self.kept = {}
+
+        def spy(data, coeffs, *, reverse=False, content_len=None):
+            out = real(data, coeffs, reverse=reverse, content_len=content_len)
+            key = "reverse" if reverse else "forward"
+            if key not in self.kept:
+                lens = content_len.clone() if isinstance(content_len, torch.Tensor) else content_len
+                self.kept[key] = (data.clone(), coeffs.clone(), lens, out.clone())
+            return out
+
+        self._patch = mock.patch.object(biquad_cuda, "biquad_scan_cuda", spy)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def _scan_passes_vs_plain(kept, contents):
+    """The captured scan passes against biquad_onepass_plain on the card:
+    the kernel's own output of that launch, bit for bit, and the per-series
+    lengths equal to the batch's per-pair contents."""
+    import torch
+
+    from rayverb_tpu_torch.ops.filters import biquad_onepass_plain
+
+    out = {}
+    for key in ("forward", "reverse"):
+        data, coeffs, lens, got = kept[key]
+        s = data.shape[0]
+        want_lens = contents.to(lens.device, torch.int32).repeat_interleave(s // contents.numel())
+        t0 = time.perf_counter()
+        plain = biquad_onepass_plain(data, coeffs, reverse=key == "reverse", content_len=lens)
+        torch.cuda.synchronize()
+        out[key] = {"shape": list(data.shape), "lens_min": int(lens.min()),
+                    "lens_max": int(lens.max()), "lens_are_contents": bool(torch.equal(lens, want_lens)),
+                    "mismatch": int((plain.view(torch.int32) != got.view(torch.int32)).sum()),
+                    "finite": bool(torch.isfinite(got).all()),
+                    "plain_s": time.perf_counter() - t0}
+        if out[key]["mismatch"] or not out[key]["lens_are_contents"] or not out[key]["finite"]:
+            raise AssertionError(f"the datagen scan's {key} pass differs from the plain "
+                                 f"version: {out[key]}")
+    return out
+
+
+class _SweepCapture:
+    """Wraps intersect_cuda.closest_hit_cuda while a batch runs and keeps
+    copies of the inputs (with the order kernel's table and the slices)
+    of the sweeps it is asked for: by call index (0 is the direct path's
+    B-row sweep, 1 the primary sweep) and, under "largest_image", the
+    image-phase sweep (odd calls after the primary, while image bounces
+    run) with the most rows. Launches pass through unchanged."""
+
+    def __init__(self, calls, image_calls):
+        self.calls, self.image_calls = calls, image_calls
+        self.kept, self.count = {}, 0
+
+    def __enter__(self):
+        from rayverb_tpu_torch.ops import intersect_cuda
+
+        real = intersect_cuda.closest_hit_cuda
+
+        def spy(o, d, packed, aabb, t_max, t_decide, order, slices, **kw):
+            i = self.count
+            self.count += 1
+            name = self.calls.get(i)
+            if name is None and i in self.image_calls and (
+                    "largest_image" not in self.kept
+                    or o.shape[0] > self.kept["largest_image"][0].shape[0]):
+                name = "largest_image"
+                self.kept["largest_image_call"] = i
+            if name is not None:
+                self.kept[name] = tuple(x.clone() for x in (o, d, t_max, t_decide, order)) + (slices,)
+            return real(o, d, packed, aabb, t_max, t_decide, order, slices, **kw)
+
+        self._patch = mock.patch.object(intersect_cuda, "closest_hit_cuda", spy)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def _datagen_sweeps_vs_plain(soup, kept, npairs):
+    """Each captured config 5 sweep against its plain version on the card:
+    the order kernel's table against block_order, and the sweep kernel's
+    t, index and executed-pair counters against closest_hit_plain, bit for
+    bit (_run_schedule). The shadow sweep's live rows must come first and
+    run pair-major: at most one run of equal origins (a mic) per pair.
+    Returns a record per sweep."""
+    import torch
+
+    from rayverb_tpu_torch.ops.intersect import block_order
+
+    out = {}
+    for name in ("primary", "shadow", "largest_image"):
+        o, d, t_max, t_decide, order, slices = kept[name]
+        live = t_max > 0
+        nlive = int(live.sum())
+        lo = o[:nlive]
+        origin_runs = 1 + int((lo[1:] != lo[:-1]).any(dim=1).sum()) if nlive else 0
+        if name == "shadow" and not (bool(live[:nlive].all()) and origin_runs <= npairs):
+            raise AssertionError(f"config 5's shadow rows are not pair-major with the dead "
+                                 f"rows last: {origin_runs} origin runs, {nlive} live rows")
+        plain_order = block_order(o, d, t_max, soup.block_aabb)
+        order_mismatch = int((order != plain_order).sum())
+        t0 = time.perf_counter()
+        rec, _ = _run_schedule(soup, (o, d, soup.packed, soup.block_aabb, t_max, t_decide),
+                               order, slices)
+        torch.cuda.synchronize()
+        out[name] = {"rows": o.shape[0], "live_rows": nlive, "origin_runs": origin_runs,
+                     "slices": slices, "order_mismatch": order_mismatch,
+                     "decided_rows": int((t_decide > 0).sum()),
+                     "mismatch_t": rec["mismatch_t"], "mismatch_i": rec["mismatch_i"],
+                     "mismatch_executed": rec["mismatch_executed"], "hits": rec["hits"],
+                     "executed_pairs": rec["executed_pairs"], "ms": rec["ms"],
+                     "compare_s": time.perf_counter() - t0}
+        if order_mismatch:
+            raise AssertionError(f"config 5 {name} sweep: the order kernel differs from "
+                                 f"block_order: {out[name]}")
+    out["largest_image"]["call"] = kept["largest_image_call"]
+    return out
+
+
+def _phase_datagen(ph, dev):
+    """Batched IR datagen (rayverb_tpu_torch.parallel.render_irs_batched):
+    config 5 at full size cold and warm (walls, pairs/s, ray-bounces/s, peak
+    memory against the plan, pairs per pass, IR shape, sweeps each through
+    the order and sweep kernels, executed pairs by kind) and one warm batch
+    under torch.profiler; 4 pairs of the batch (normalize off) against
+    render_fused of the same pair on the card (1e-5 of peak, equal
+    contents); 3 pairs x 256 rays x 6 reflections on large_square with the
+    kernels and with the plain versions (bit-identical, equal counters) and
+    on the CPU (-60 dB); 8 pairs of config 5 with the Linkwitz-Riley bank
+    through the scan finalize (one biquad launch per pass for all pairs)
+    against the fft one (-60 dB); 8 pairs on room1.dxf (finite, non-silent)."""
+    import numpy as np
+    import torch
+
+    from rayverb_tpu_torch.config.schema import parse_config
+    from rayverb_tpu_torch.constants import NUM_IMAGE_SOURCE
+    from rayverb_tpu_torch.ops.filters import _band_coeffs
+    from rayverb_tpu_torch.ops.render import render_fused
+    from rayverb_tpu_torch.ops.trace import sweep_count
+    from rayverb_tpu_torch.parallel.datagen import render_irs_batched
+    from rayverb_tpu_torch.profile_render import device_breakdown
+    from rayverb_tpu_torch.scene import load_scene
+    from rayverb_tpu_torch.utils.directions import random_directions
+
+    scene = load_scene(VAULT[1], VAULT[2])
+    cfg = parse_config(json.dumps(DATAGEN))
+    sources, mics, dirs = _datagen_inputs(scene, DATAGEN_PAIRS, cfg.rays)
+    expected = sweep_count(cfg.reflections)
+    runs = []
+    for label in ("cold", "warm"):
+        irs, contents, run = _datagen_run(label, scene, cfg, sources, mics, dirs, dev)
+        runs.append(run)
+        _emit({"datagen_run": run})
+        if run["shape"] != [DATAGEN_PAIRS, 2, run["histogram_length"]] or not _per_pair_peak_ok(irs):
+            raise AssertionError(f"config 5 IRs are not (64, 2, L), finite and non-silent: {run}")
+        if (run["launches"] != expected * run["passes"] or run["order_launches"] != run["launches"]
+                or run["sweeps"] != run["launches"] or run["biquad_launches"] != 0):
+            raise AssertionError(f"config 5 did not run {expected} sweeps per pass through "
+                                 f"the order and sweep kernels: {run}")
+    prof = device_breakdown(
+        lambda: render_irs_batched(scene, cfg, sources, mics, dirs, device=dev))
+    ph.out.update(pairs=DATAGEN_PAIRS, rays=cfg.rays, reflections=cfg.reflections,
+                  runs=runs, expected_sweeps_per_pass=expected,
+                  plan_bytes=DATAGEN_PLAN_BYTES, profiled_warm_batch=prof)
+
+    # 4 pairs of the batch, normalize off, against render_fused of each;
+    # the batch's own primary sweep (262,144 Morton-ordered rows), its
+    # first pure shadow sweep (pair-major rows, the first bounce past the
+    # image phase) and its largest image-phase sweep are kept, and held
+    # against their plain versions below
+    flat = parse_config(json.dumps(dict(DATAGEN, normalize=False)))
+    n_img = min(cfg.reflections, NUM_IMAGE_SOURCE - 1)
+    with _SweepCapture({1: "primary", 2 * n_img + 2: "shadow"},
+                       range(2, 2 * n_img + 1, 2)) as cap:
+        irs, contents = render_irs_batched(scene, flat, sources, mics, dirs, device=dev)
+    if cap.count != expected:
+        raise AssertionError(f"config 5 made {cap.count} sweeps, not {expected}")
+    if not bool(torch.isfinite(irs).all()):
+        raise AssertionError("config 5 with normalize off is not finite")
+    singles = []
+    for i in DATAGEN_SINGLE:
+        one = parse_config(json.dumps(dict(DATAGEN, normalize=False,
+                                           source_position=sources[i].tolist(),
+                                           mic_position=mics[i].tolist())))
+        want, info = render_fused(scene, one, dirs[i], device=dev)
+        got = irs[i].cpu().numpy()
+        n = want.shape[-1]
+        peak = float(np.abs(want).max())
+        rec = {"pair": i, "content": int(contents[i]), "single_content": info["content_length"],
+               "peak": peak,
+               "max_abs_diff_over_peak": float(np.abs(got[:, :n] - want).max()) / peak,
+               "beyond_content_over_peak": float(np.abs(got[:, n:]).max(initial=0.0)) / peak}
+        singles.append(rec)
+        if (rec["content"] != rec["single_content"] or not peak > 0
+                or not (rec["max_abs_diff_over_peak"] <= 1e-5)
+                or not (rec["beyond_content_over_peak"] <= 1e-5)):
+            raise AssertionError(f"batched pair differs from render_fused: {rec}")
+    ph.out["batched_vs_single"] = singles
+
+    # config 5's own sweeps against the plain versions, bit for bit
+    from rayverb_tpu_torch.ops.intersect import soup_from_scene
+
+    ph.out["config5_sweeps_vs_plain"] = _datagen_sweeps_vs_plain(
+        soup_from_scene(scene, device=dev), cap.kept, DATAGEN_PAIRS)
+    del cap
+
+    # the kernels against their plain versions, and the card against the CPU
+    box = load_scene(os.path.join(REPO, "assets", "test_models", "large_square.obj"),
+                     os.path.join(REPO, "assets", "materials", "mat.json"))
+    small = parse_config(json.dumps({
+        "rays": 256, "reflections": 6, "sample_rate": 16000, "bit_depth": 16,
+        "source_position": [0, 0, 0], "mic_position": [0, 0, 0],
+        "attenuation_model": {"speakers": [{"direction": [0, 0, 1], "shape": 0.5},
+                                           {"direction": [1, 0, 0], "shape": 0.0}]},
+        "filter": "linkwitz_riley", "trim_predelay": True, "trim_tail": False,
+    }))
+    s_src = np.float32([[0.031, 1.989, 2.007], [1.031, 2.989, 0.007], [-1.969, 4.989, 1.007]])
+    s_mic = np.float32([[0.013, 2.017, 0.021], [0.013, 4.017, 2.021], [2.013, 6.017, -0.979]])
+    s_dirs = np.stack([random_directions(small.rays, seed=i) for i in range(3)])
+    by_impl = {}
+    for impl in ("cuda", "plain"):
+        by_impl[impl] = _datagen_run(impl, box, small, s_src, s_mic, s_dirs, dev, impl=impl)
+    cpu, cpu_contents = render_irs_batched(box, small, s_src, s_mic, s_dirs, device="cpu")
+    ka, kc, kr = by_impl["cuda"]
+    pa, pc, pr = by_impl["plain"]
+    card = ka.cpu().numpy()
+    cpu = cpu.numpy()
+    cpu_errs = [_ir_error(card[i], cpu[i]) for i in range(3)]
+    cpu_err = float(np.max(cpu_errs))
+    ph.out["kernel_vs_plain"] = {
+        "bit_identical": bool(torch.equal(ka, pa) and torch.equal(kc, pc)),
+        "pair_tests_executed": kr["pair_tests_executed"],
+        "pair_tests_executed_plain": pr["pair_tests_executed"],
+        "launches": kr["launches"], "plain_launches": pr["launches"],
+        "card_vs_cpu_max_err_over_peak": cpu_err,
+        "contents": kc.tolist(), "cpu_contents": cpu_contents.tolist(),
+    }
+    if (not ph.out["kernel_vs_plain"]["bit_identical"]
+            or kr["pair_tests_executed"] != pr["pair_tests_executed"]
+            or kr["launches"] != sweep_count(small.reflections) or pr["launches"] != 0):
+        raise AssertionError(f"the kernels' batch differs from the plain versions': "
+                             f"{ph.out['kernel_vs_plain']}")
+    if not (all(e < 1e-3 for e in cpu_errs) and np.all(np.isfinite(card))
+            and np.all(np.isfinite(cpu))):
+        raise AssertionError(f"the card's batch differs from the CPU's: {ph.out['kernel_vs_plain']}")
+
+    # the scan finalize: one biquad launch per pass for every pair's series
+    lr = parse_config(json.dumps(dict(DATAGEN, filter="linkwitz_riley")))
+    k = DATAGEN_SCAN_PAIRS
+    with mock.patch.dict(os.environ, RAYVERB_FINALIZE_FILTER="scan"), _ScanCapture() as scans:
+        scan_irs, scan_contents, scan_run = _datagen_run(
+            "scan", scene, lr, sources[:k], mics[:k], dirs[:k], dev)
+    fft_irs, fft_contents = render_irs_batched(scene, lr, sources[:k], mics[:k], dirs[:k],
+                                               device=dev)
+    scan_np, fft_np = scan_irs.cpu().numpy(), fft_irs.cpu().numpy()
+    if not (np.all(np.isfinite(scan_np)) and np.all(np.isfinite(fft_np))):
+        raise AssertionError("the scan or fft finalize's batch is not finite")
+    scan_errs = [_ir_error(scan_np[i], fft_np[i]) for i in range(k)]
+    scan_err = float(np.max(scan_errs))
+    passes = len(_band_coeffs(lr.filter, lr.sample_rate, lr.hipass))
+    ph.out["scan_finalize"] = {"pairs": k, "series_per_launch": k * 2 * 8,
+                               "biquad_launches": scan_run["biquad_launches"],
+                               "filter_passes": passes,
+                               "filter_method": scan_run["filter_method"],
+                               "finalize_s": scan_run["timings"]["finalize"],
+                               "max_err_over_peak_vs_fft": scan_err}
+    if (scan_run["biquad_launches"] != passes or scan_run["filter_method"] != "scan"
+            or not all(e < 1e-3 for e in scan_errs)
+            or not torch.equal(scan_contents, fft_contents)):
+        raise AssertionError(f"the batched scan finalize is wrong: {ph.out['scan_finalize']}")
+    # the scan bank's first forward and first reverse pass, each as the
+    # kernel ran it in that batch (8 x 2 x 8 series, the pairs' own content
+    # lengths), against biquad_onepass_plain on the same inputs, bit for bit
+    ph.out["scan_passes_vs_plain"] = _scan_passes_vs_plain(scans.kept, scan_contents)
+
+    # a DXF scene on the card path
+    room = load_scene(os.path.join(REPO, "assets", "test_models", "room1.dxf"),
+                      os.path.join(REPO, "assets", "materials", "mat.json"))
+    r_src, r_mic, r_dirs = _datagen_inputs(room, DATAGEN_DXF_PAIRS, cfg.rays)
+    r_irs, r_contents, r_run = _datagen_run("room1_dxf", room, cfg, r_src, r_mic, r_dirs, dev)
+    ph.out["room1_dxf"] = {"triangles": room.num_triangles, "shape": r_run["shape"],
+                           "wall_s": r_run["wall_s"], "launches": r_run["launches"],
+                           "contents": r_contents.tolist(),
+                           "peaks": r_irs.abs().amax(dim=(1, 2)).tolist()}
+    if not _per_pair_peak_ok(r_irs) or r_run["launches"] != expected:
+        raise AssertionError(f"the room1.dxf batch is not finite and non-silent: {ph.out['room1_dxf']}")
+    return runs
+
+
 def main() -> int:
     threading.Thread(target=_watchdog, daemon=True).start()
     import torch
@@ -1478,9 +1906,10 @@ def main() -> int:
             _phase_hrtf_small_vs_cpu(ph, dev)
         with Phase("hall_kernel_vs_plain") as ph:
             hall_scene = _hall(ph, tmp)
+            hall_load_s = ph.out["load_s"]
             hall = _phase_hall(ph, dev, hall_scene)
         with Phase("north_star") as ph:
-            north = _phase_north_star(ph, dev, hall_scene)
+            north = _phase_north_star(ph, dev, hall_scene, hall_load_s)
             north_order = ph.out
         with Phase("order_vs_plain") as ph:
             order_rec = _phase_order(ph, dev, hall_scene)
@@ -1493,6 +1922,9 @@ def main() -> int:
             _phase_modular_vs_fused(ph, dev)
         with Phase("raw_and_dump") as ph:
             _phase_raw_and_dump(ph, dev, tmp)
+        with Phase("datagen") as ph:
+            datagen_runs = _phase_datagen(ph, dev)
+            datagen_scan = ph.out["scan_finalize"]
     except Exception:
         traceback.print_exc()
         return 1
@@ -1506,7 +1938,7 @@ def main() -> int:
     # launches of each path, counted from 0 just before its warm run (the
     # north star's: its warm render); "launches" is the binaural vault's
     paths = {"main_path": runs[-1], "hrtf_main_path": hrtf_runs[-1], "north_star": north[-1],
-             "modular_main_path": modular_runs[-1]}
+             "modular_main_path": modular_runs[-1], "datagen": datagen_runs[-1]}
     _emit({"kernels": [{
         "name": "closest_hit",
         "route": "cuda",
@@ -1588,6 +2020,9 @@ def main() -> int:
         "dependency_bound_ms": biquad_main["dependency_bound_ms"],
         # no PyTorch call computes an IIR scan
         "library_ms": None,
+        # the batched scan finalize: one launch per pass for all pairs
+        "launches_datagen_scan": datagen_scan["biquad_launches"],
+        "series_per_launch_datagen_scan": datagen_scan["series_per_launch"],
         "ms_per_pass_524288": biquad["ms_per_pass"],
         "bounds_524288": biquad["bounds"],
         "full_length_max_err_over_peak": biquad["full_length"]["max_err_over_peak"],

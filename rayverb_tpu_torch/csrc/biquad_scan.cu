@@ -17,7 +17,10 @@
 // each multiply and add rounded on its own (no FMA), over the samples
 // [0, content) in order, or from content - 1 down to 0 when `reverse`;
 // samples at and after `content` are written as +0 (the fused finalize's
-// mask after every pass, ops/render.py). y may alias x.
+// mask after every pass, ops/render.py). y may alias x. With `contents`
+// (an (series,) int32 device array) series s takes contents[s] in place of
+// `content`: the batched finalize gives each pair its own content length,
+// so one launch covers every pair's series (one thread block each).
 //
 // What bounds it on the H100: the recurrence's dependent chain, not bytes.
 // From one output to the next the chain is a multiply, a subtract and an
@@ -63,12 +66,14 @@ __device__ __forceinline__ void tile_span(int k, int ntiles, int content,
 
 __global__ void __launch_bounds__(kThreads)
 biquad_scan(const float* x, float* y, const float* __restrict__ coeffs,
-            int t, int content, int reverse) {
+            int t, int content_all, const int* __restrict__ contents,
+            int reverse) {
   __shared__ float buf[2][kTile];
   const size_t base = (size_t)blockIdx.x * (size_t)t;
   const float* xs = x + base;
   float* ys = y + base;
   const int tid = threadIdx.x;
+  const int content = contents ? contents[blockIdx.x] : content_all;
 
   for (int i = content + tid; i < t; i += kThreads) ys[i] = 0.0f;
   const int ntiles = (content + kTile - 1) / kTile;
@@ -123,11 +128,14 @@ biquad_scan(const float* x, float* y, const float* __restrict__ coeffs,
 
 // C interface for ctypes. x and y: device pointers of contiguous (series, t)
 // float32 arrays (y may equal x); coeffs: (series, 5) float32. Samples
-// [content, t) of y are written as 0; 0 <= content <= t. Enqueues one
-// launch on `stream` and returns cudaGetLastError() (cudaErrorInvalidValue
-// for arguments out of range).
+// [content, t) of y are written as 0; 0 <= content <= t. contents: null, or
+// a device pointer of (series,) int32 per-series lengths in [0, t] (the
+// caller checks them) that take the place of `content`. Enqueues one launch
+// on `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for
+// arguments out of range).
 extern "C" int rv_biquad_scan(const void* x, void* y, const void* coeffs,
-                              int series, int t, int content, int reverse,
+                              int series, int t, int content,
+                              const void* contents, int reverse,
                               void* stream) {
   if (series < 0 || t < 0 || content < 0 || content > t) {
     return (int)cudaErrorInvalidValue;
@@ -135,6 +143,6 @@ extern "C" int rv_biquad_scan(const void* x, void* y, const void* coeffs,
   if (series == 0 || t == 0) return 0;
   biquad_scan<<<series, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float*)y, (const float*)coeffs, t, content,
-      reverse != 0);
+      (const int*)contents, reverse != 0);
   return (int)cudaGetLastError();
 }

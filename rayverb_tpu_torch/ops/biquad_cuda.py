@@ -32,7 +32,8 @@ def _kernel():
 
         lib = load_library("biquad_scan", ["biquad_scan.cu"])
         fn = lib.rv_biquad_scan
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -48,9 +49,10 @@ def biquad_scan_cuda(data, coeffs, *, reverse: bool = False, content_len=None):
     """(S, T) float32 output of S biquad series on the current stream:
     the contract of filters.biquad_onepass_plain (series s with
     coeffs[s] = [b0, b1, b2, a1, a2]; samples [content_len, T) are 0; a
-    reverse pass starts at content_len - 1). ``data`` (S, T) and ``coeffs``
-    (S, 5) must be contiguous float32 CUDA tensors on one device; anything
-    else raises."""
+    reverse pass starts at content_len - 1). content_len: None (T), an int,
+    or an (S,) int32 tensor of per-series lengths on the same device (one
+    launch for all series). ``data`` (S, T) and ``coeffs`` (S, 5) must be
+    contiguous float32 CUDA tensors on one device; anything else raises."""
     global launches
     if not data.is_cuda:
         raise ValueError(
@@ -66,9 +68,21 @@ def biquad_scan_cuda(data, coeffs, *, reverse: bool = False, content_len=None):
             or tuple(coeffs.shape) != (s, 5) or not coeffs.is_contiguous()):
         raise ValueError(f"coeffs must be a contiguous ({s}, 5) float32 tensor on "
                          f"{dev}, got {tuple(coeffs.shape)} {coeffs.dtype} on {coeffs.device}")
-    content = t if content_len is None else int(content_len)
-    if not 0 <= content <= t:
-        raise ValueError(f"content_len must lie in [0, {t}], got {content}")
+    contents = None
+    if isinstance(content_len, torch.Tensor):
+        contents = content_len
+        if (contents.device != dev or contents.dtype != torch.int32
+                or tuple(contents.shape) != (s,) or not contents.is_contiguous()):
+            raise ValueError(f"per-series content lengths must be a contiguous ({s},) "
+                             f"int32 tensor on {dev}, got {tuple(contents.shape)} "
+                             f"{contents.dtype} on {contents.device}")
+        if s and not (0 <= int(contents.min()) and int(contents.max()) <= t):
+            raise ValueError(f"content lengths must lie in [0, {t}]")
+        content = t
+    else:
+        content = t if content_len is None else int(content_len)
+        if not 0 <= content <= t:
+            raise ValueError(f"content_len must lie in [0, {t}], got {content}")
     if s >= 2**31 or t >= 2**31:
         raise ValueError(f"the kernel takes fewer than 2**31 series and samples, got {s} x {t}")
     out = torch.empty_like(data)
@@ -78,7 +92,8 @@ def biquad_scan_cuda(data, coeffs, *, reverse: bool = False, content_len=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(data.data_ptr(), out.data_ptr(), coeffs.data_ptr(), s, t,
-                 content, int(bool(reverse)), stream)
+                 content, None if contents is None else contents.data_ptr(),
+                 int(bool(reverse)), stream)
     if err != 0:
         raise RuntimeError(f"biquad scan kernel launch failed: CUDA error {err}")
     launches += 1

@@ -162,6 +162,21 @@ def linkwitz_riley_coeffs(lo: float, hi: float, sr: float):
 # biquad application
 # ---------------------------------------------------------------------------
 
+def _content_lengths(content_len, t: int):
+    """A biquad pass's content lengths: an int (every series), or None for
+    t, or a tensor of per-series lengths, each in [0, t]."""
+    if isinstance(content_len, torch.Tensor):
+        lens = content_len.reshape(-1).to(torch.int64)
+        if lens.numel() and not (0 <= int(lens.min()) and int(lens.max()) <= t):
+            raise ValueError(f"content lengths must lie in [0, {t}], got "
+                             f"[{int(lens.min())}, {int(lens.max())}]")
+        return lens
+    n = t if content_len is None else int(content_len)
+    if not 0 <= n <= t:
+        raise ValueError(f"content_len must lie in [0, {t}], got {n}")
+    return n
+
+
 def biquad_onepass_plain(data, coeffs, *, reverse: bool = False, content_len=None):
     """The plain PyTorch version of the biquad_scan kernel: (S, T) float32
     series, (S, 5) float32 coefficients [b0, b1, b2, a1, a2] per series.
@@ -174,16 +189,26 @@ def biquad_onepass_plain(data, coeffs, *, reverse: bool = False, content_len=Non
 
     over the samples [0, content_len) (reverse: from content_len - 1 down
     to 0); samples at and after content_len are +0. content_len None means
-    T."""
+    T; an (S,) tensor gives each series its own length (a series' state
+    stays +0 until its first sample)."""
     s, t = data.shape
-    n = t if content_len is None else int(content_len)
-    if not 0 <= n <= t:
-        raise ValueError(f"content_len must lie in [0, {t}], got {n}")
+    n = _content_lengths(content_len, t)
     x_t = data.T.contiguous()  # (T, S): one row per step
     out_t = torch.zeros_like(x_t)
     b0, b1, b2, a1, a2 = coeffs.T.contiguous()
     z1 = torch.zeros((s,), dtype=torch.float32, device=data.device)
     z2 = torch.zeros_like(z1)
+    if isinstance(n, torch.Tensor):
+        lens = n.to(data.device)
+        top = int(lens.max()) if s else 0
+        for i in range(top - 1, -1, -1) if reverse else range(top):
+            x = x_t[i]
+            on = i < lens
+            out = x * b0 + z1
+            z1 = torch.where(on, x * b1 + z2 - a1 * out, z1)
+            z2 = torch.where(on, x * b2 - a2 * out, z2)
+            out_t[i] = torch.where(on, out, 0.0)
+        return out_t.T.contiguous()
     for i in range(n - 1, -1, -1) if reverse else range(n):
         x = x_t[i]
         out = x * b0 + z1
@@ -203,7 +228,9 @@ def biquad_onepass(data, coeffs, *, reverse: bool = False, content_len=None):
     reverse=True runs back to front over the unflipped signal (the JAX
     lax.scan(reverse=True)). content_len: samples at and after it are
     written as 0 and a reverse pass starts at content_len - 1 (the fused
-    finalize's per-pass mask); None means T.
+    finalize's per-pass mask); None means T. A tensor broadcastable to
+    data's leading dims gives each series its own length (the batched
+    finalize's per-pair content lengths), so one launch covers them all.
 
     A CUDA tensor goes to the biquad_scan kernel (ops/biquad_cuda.py), a CPU
     tensor to biquad_onepass_plain; there is no other route."""
@@ -213,6 +240,10 @@ def biquad_onepass(data, coeffs, *, reverse: bool = False, content_len=None):
     t = shape[-1]
     x = data.reshape(-1, t).contiguous()
     c = torch.broadcast_to(coeffs, shape[:-1] + (5,)).reshape(-1, 5).contiguous()
+    if isinstance(content_len, torch.Tensor):
+        content_len = torch.broadcast_to(
+            content_len.to(device=data.device, dtype=torch.int32), shape[:-1]
+        ).reshape(-1).contiguous()
     if x.is_cuda:
         from .biquad_cuda import biquad_scan_cuda
 
@@ -292,7 +323,7 @@ def _scan_onepass_multi(data, coeff_stack, content_len=None):
     whose cumulative flip parity is odd runs as a reverse scan on the
     unflipped signal (the same bits as flip, scan, flip back), so the
     output keeps the input's time order. content_len: biquad_onepass's
-    per-pass mask."""
+    per-pass mask (an int, or per-series lengths)."""
     out = _f32(data)
     reverse = False
     for coeffs, do_flip in coeff_stack:

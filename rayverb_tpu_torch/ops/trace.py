@@ -20,6 +20,11 @@ Differences in form from the JAX trace, none in results:
     where the JAX trace keeps full-width rows and parks the rest dead; the
     rows left out could only ever produce ``img_ok = False``
   - uint32 sort keys and hashes are computed in int64 masked to 32 bits
+  - a multi-pair trace (``pair_id``, the batched datagen's) traces exactly
+    B x N rows: the sweep takes any row count, so there is no padding of
+    the rows to 512 (JAX datagen.py ``_ROW_ALIGN``) and no ``nvalid``; and
+    the per-row mic and source are gathered once instead of riding the
+    ray state through its re-sorts, since the state here never moves
 Faithfully kept quirks of the reference are those listed in the JAX module
 (sign flip per bounce, pre-bounce image volume, |n.d| Lambert term).
 """
@@ -38,6 +43,7 @@ from ..constants import (
     NUM_IMAGE_SOURCE,
     SECONDS_PER_METER,
 )
+from .attenuate import _f32
 from .intersect import (
     SWEEP_RAYS,
     Hit,
@@ -178,13 +184,22 @@ def _gather_hit(h: Hit, idx) -> Hit:
     return Hit(t=h.t[idx], index=h.index[idx], hit=h.hit[idx])
 
 
-def _shadow_rows(mic, intersection, alive, mag):
+def _shadow_rows(mic, intersection, alive, mag, pair=None):
     """Reversed, direction-sorted mic-shadow sweep rows (trace.py:258-283):
     origin at the mic, direction toward the bounce point. Returns (origins,
     dirs, bounds, decide, inv_perm, mag_eff); gather the sweep's Hit through
-    inv_perm before reading vis = (~hit) | (t > mag_eff)."""
+    inv_perm before reading vis = (~hit) | (t > mag_eff).
+
+    mic: (3,) or per-row (N, 3). pair (N,) int64 (multi-pair traces): the
+    alive rows sort pair-major, then by direction, and the dead rows go
+    last (JAX ``lexsort((key, dead))``), so a 32-ray group of the order
+    kernel shares one mic origin."""
     d = _safe_normalize(intersection - mic)
     key = torch.where(alive, _dir_morton(d), _U32)
+    if pair is not None:
+        # (pair, key) in one int64: pairs below 2**31, keys below 2**32
+        dead = torch.where(alive, pair, 0x7FFFFFFF)
+        key = (dead << 32) | key
     perm = torch.argsort(key, stable=True)
     inv_perm = _inv_permutation(perm)
     mag_eff = mag * (1.0 - 4e-6) - EPSILON
@@ -216,11 +231,22 @@ def _trace_impl(
     consume_row=None,
     resort: bool = False,
     stats: torch.Tensor | None = None,
+    pair_id=None,
 ):
     """The trace loop. With ``consume_row=None`` returns TraceOutputs (dense
     per-ray rows). Otherwise each diffuse row (volume (N,8), position (N,3),
     time (N,)) is handed to ``consume_row`` as it is produced and the call
     returns the image slots (vol, pos, time, index), each (N, S, ...).
+
+    pair_id ((N,) int64, consume path only) puts the trace in multi-pair
+    mode (JAX trace.py:409-418), the batched datagen's: ``mic`` and
+    ``source`` are (B, 3) per-pair arrays and row i belongs to pair
+    pair_id[i]. Every sweep carries all B pairs' rows at once; the direct
+    path is one B-row sweep gathered back onto the rows. The per-row mic
+    and source are gathered once: the ray state stays in row order (only
+    a sweep permutes its rows), so they never move. Consumed rows then
+    carry (mic_rows (N, 3), pair_id (N,)) after (volume, position, time),
+    and the image slots line up with the rows.
 
     resort=True feeds each later bounce sweep its rows sorted by the mix6
     key (a sweep-local permutation; the ray state stays in row order).
@@ -233,12 +259,20 @@ def _trace_impl(
     those row ranges exactly. With stats=None the sweeps run without
     counters."""
     dev = soup.device
-    mic = torch.as_tensor(np.asarray(mic, np.float32), device=dev)
-    source = torch.as_tensor(np.asarray(source, np.float32), device=dev)
-    directions = torch.as_tensor(
-        np.asarray(directions, np.float32), device=dev
-    )
+    mic = _f32(mic, dev)
+    source = _f32(source, dev)
+    directions = _f32(directions, dev)
     n = directions.shape[0]
+    multi = pair_id is not None
+    if multi:
+        if consume_row is None:
+            raise ValueError("a multi-pair trace needs consume_row")
+        pair_id = torch.as_tensor(pair_id, device=dev).to(torch.int64)
+        mic_rows = mic[pair_id]
+        src_rows = source[pair_id]
+    else:
+        mic_rows = mic.expand(n, 3)
+        src_rows = source.expand(n, 3)
     air = torch.from_numpy(AIR_COEFFICIENT).to(dev)
     if resort:
         lo_b = soup.bounds[0]
@@ -282,7 +316,7 @@ def _trace_impl(
         surf = soup.surface[hit.index]
         new_vol = -state.volume * soup.specular[surf]
         nrm = soup.normal[hit.index]
-        to_mic_dist = torch.linalg.norm(mic - intersection, dim=-1)
+        to_mic_dist = torch.linalg.norm(mic_rows - intersection, dim=-1)
         dist = torch.where(vis, new_dist + to_mic_dist, 0.0)
         diff = torch.abs(torch.sum(nrm * state.dir, dim=-1))
         volume_out = (
@@ -306,29 +340,38 @@ def _trace_impl(
         return next_state, (volume_out, position_out, time_out)
 
     state = _RayState(
-        pos=source.expand(n, 3).clone(),
+        pos=src_rows.clone(),
         dir=directions,
         distance=torch.zeros((n,), device=dev),
         volume=torch.ones((n, NUM_BANDS), device=dev),
         alive=torch.ones((n,), dtype=torch.bool, device=dev),
     )
 
-    # ---- direct path (image slot 0), identical for every ray ----
-    diff0 = (source - mic)[None]
+    # ---- direct path (image slot 0), identical for every ray of a pair:
+    # one row per pair (one B-row sweep in multi-pair mode) ----
+    mic2 = mic.reshape(-1, 3)
+    src2 = source.reshape(-1, 3)
+    diff0 = src2 - mic2
     dist0 = torch.linalg.norm(diff0, dim=-1)
-    h0 = sweep(source[None], _safe_normalize(mic - source)[None], _sweep_bound(dist0))
+    h0 = sweep(src2, _safe_normalize(mic2 - src2), _sweep_bound(dist0))
     vis0 = _visible_from_hit(h0, dist0)
-    image_vol = [
-        torch.where(vis0[:, None], air_attenuation(dist0), 0.0).expand(n, NUM_BANDS)
-    ]
-    image_pos = [torch.where(vis0[:, None], mic + diff0, 0.0).expand(n, 3)]
-    image_time = [torch.where(vis0, SECONDS_PER_METER * dist0, 0.0).expand(n)]
+    vol0 = torch.where(vis0[:, None], air_attenuation(dist0), 0.0)
+    pos0 = torch.where(vis0[:, None], mic2 + diff0, 0.0)
+    time0 = torch.where(vis0, SECONDS_PER_METER * dist0, 0.0)
+    if multi:
+        image_vol, image_pos, image_time = [vol0[pair_id]], [pos0[pair_id]], [time0[pair_id]]
+    else:
+        image_vol = [vol0.expand(n, NUM_BANDS)]
+        image_pos = [pos0.expand(n, 3)]
+        image_time = [time0.expand(n)]
     image_idx = [torch.zeros((n,), dtype=torch.int64, device=dev)]
 
-    mic_reflection = mic.expand(n, 3)
+    mic_reflection = mic_rows
     prev_tris: list = []
     diffuse_rows = []
     emit_row = diffuse_rows.append if consume_row is None else consume_row
+    # multi-pair rows carry their mic and pair to the consumer
+    extra = (mic_rows, pair_id) if multi else ()
 
     # ---- phase A: bounces that take part in the image-source search ----
     n_image_bounces = min(nreflections, NUM_IMAGE_SOURCE - 1)
@@ -348,19 +391,17 @@ def _trace_impl(
 
         # exact admission gate: emitting this bounce's image needs every
         # segment's mirrored-space hit in front (kernel.cpp:396-429)
-        img_dir = _safe_normalize(mic_reflection_new - source)
+        img_dir = _safe_normalize(mic_reflection_new - src_rows)
         chain = torch.stack(prev_tris, dim=1)            # (N, k+1, 3, 3)
-        t_k = intersect_triangle(
-            source.expand(n, 1, 3), img_dir[:, None, :], chain
-        )
+        t_k = intersect_triangle(src_rows[:, None, :], img_dir[:, None, :], chain)
         k1 = index + 1
-        mag_diffuse = torch.linalg.norm(mic - intersection, dim=-1)
+        mag_diffuse = torch.linalg.norm(mic_rows - intersection, dim=-1)
         maybe = alive_new & torch.all(t_k > EPSILON, dim=-1)
         sel = torch.nonzero(maybe).squeeze(1)            # gated rays, in order
         g = sel.shape[0]
 
         # validation geometry for the gated rays only
-        src_col_s = source.expand(g, 1, 3)
+        src_col_s = src_rows[sel][:, None, :]
         t_k_s = t_k[sel]
         chain_s = chain[sel]
         ip_s = src_col_s + img_dir[sel][:, None, :] * t_k_s[..., None]
@@ -378,11 +419,11 @@ def _trace_impl(
         seg_dir_s = _safe_normalize(seg_vec_s)
         seg_len_s = torch.linalg.norm(seg_vec_s, dim=-1)
         final_ip_s = ip_world_s[:, index]
-        to_mic_image_s = mic - final_ip_s
+        to_mic_image_s = mic_rows[sel] - final_ip_s
         mag_image_s = torch.linalg.norm(to_mic_image_s, dim=-1)
 
         sh_origin, sh_d, sh_bound, sh_decide, sh_inv, sh_mag_eff = _shadow_rows(
-            mic, intersection, alive_new, mag_diffuse
+            mic_rows, intersection, alive_new, mag_diffuse, pair_id
         )
         # one sweep: shadow rows, then segments, then image visibility;
         # only the validation segments need the exact closest hit
@@ -425,19 +466,19 @@ def _trace_impl(
         img_ok[sel] = torch.all(seg_ok_s, dim=-1) & img_vis_s
 
         # the image impulse carries the PRE-bounce volume (kernel.cpp:442-455)
-        init_diff = source - mic_reflection_new
+        init_diff = src_rows - mic_reflection_new
         init_dist = torch.linalg.norm(init_diff, dim=-1)
         ok1 = img_ok[:, None]
         image_vol.append(
             torch.where(ok1, state.volume * air_attenuation(init_dist), 0.0)
         )
-        image_pos.append(torch.where(ok1, mic + init_diff, 0.0))
+        image_pos.append(torch.where(ok1, mic_rows + init_diff, 0.0))
         image_time.append(torch.where(img_ok, SECONDS_PER_METER * init_dist, 0.0))
         image_idx.append(torch.where(img_ok, bounce.index + 1, 0))
 
         mic_reflection = mic_reflection_new
         state, row = diffuse_impulse(state, bounce, vis, t_safe)
-        emit_row(row)
+        emit_row(row + extra)
 
     # ---- phase B: pure diffuse bounces ----
     for _ in range(nreflections - n_image_bounces):
@@ -445,16 +486,16 @@ def _trace_impl(
         t_safe = torch.where(bounce.hit, bounce.t, 0.0)
         intersection = state.pos + state.dir * t_safe[:, None]
         alive2 = state.alive & bounce.hit
-        mag = torch.linalg.norm(mic - intersection, dim=-1)
+        mag = torch.linalg.norm(mic_rows - intersection, dim=-1)
         sh_origin, sh_d, sh_bound, sh_decide, sh_inv, sh_mag_eff = _shadow_rows(
-            mic, intersection, alive2, mag
+            mic_rows, intersection, alive2, mag, pair_id
         )
         shadow = sweep(
             sh_origin, sh_d, sh_bound, sh_decide, kinds=((_SHADOW, 0, n),)
         )
         vis = _visible_from_hit(_gather_hit(shadow, sh_inv), sh_mag_eff)
         state, row = diffuse_impulse(state, bounce, vis, t_safe)
-        emit_row(row)
+        emit_row(row + extra)
 
     # pad image slots when nreflections < NUM_IMAGE_SOURCE - 1
     while len(image_vol) < NUM_IMAGE_SOURCE:

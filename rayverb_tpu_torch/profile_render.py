@@ -42,28 +42,18 @@ def _busy_us(intervals):
     return total
 
 
-def profile(paths=VAULT, impl: str = "auto") -> dict:
+def device_breakdown(fn) -> dict:
+    """Device time of one call of ``fn`` (enqueueing CUDA work) under
+    torch.profiler (CPU and CUDA activities), the device synchronised
+    after it: the wall, device kernel time in total and by kernel (top 12),
+    the closest-hit kernels' launches and time, and the device's busy share
+    (union of kernel intervals over the wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    from .config.schema import load_config
-    from .ops.intersect import soup_from_scene
-    from .ops.render import render_fused
-    from .scene import load_scene
-    from .utils.directions import random_directions
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_render needs a CUDA device")
-    cfg = load_config(paths[0])
-    scene = load_scene(paths[1], paths[2])
-    dirs = random_directions(cfg.rays, seed=cfg.seed)
-    soup = soup_from_scene(scene, device="cuda")
-    render_fused(scene, cfg, dirs, impl=impl, device="cuda", soup=soup)
-    torch.cuda.synchronize()
-    host_us = host_cost(soup)
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_fused(scene, cfg, dirs, impl=impl, device="cuda", soup=soup)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
@@ -80,10 +70,6 @@ def profile(paths=VAULT, impl: str = "auto") -> dict:
     device_ms = sum(v[1] for v in kernels.values()) / 1e3
     busy_ms = _busy_us(intervals) / 1e3
     return {
-        "device": torch.cuda.get_device_name(0),
-        "config": paths[0],
-        "rays": cfg.rays,
-        "reflections": cfg.reflections,
         "wall_ms": wall * 1e3,
         "device_events": len(intervals),
         "device_kernel_ms": device_ms if intervals else "not measured",
@@ -97,10 +83,39 @@ def profile(paths=VAULT, impl: str = "auto") -> dict:
             for n, v in hit.items()
         },
         "closest_hit_ms": sum(v[1] for v in hit.values()) / 1e3,
-        "host_us_per_call": host_us,
         "top_kernels": [
             {"name": n[:120], "count": v[0], "ms": v[1] / 1e3} for n, v in top[:12]
         ],
+    }
+
+
+def profile(paths=VAULT, impl: str = "auto") -> dict:
+    import torch
+
+    from .config.schema import load_config
+    from .ops.intersect import soup_from_scene
+    from .ops.render import render_fused
+    from .scene import load_scene
+    from .utils.directions import random_directions
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_render needs a CUDA device")
+    cfg = load_config(paths[0])
+    scene = load_scene(paths[1], paths[2])
+    dirs = random_directions(cfg.rays, seed=cfg.seed)
+    soup = soup_from_scene(scene, device="cuda")
+    render_fused(scene, cfg, dirs, impl=impl, device="cuda", soup=soup)
+    torch.cuda.synchronize()
+    host_us = host_cost(soup)
+    out = device_breakdown(
+        lambda: render_fused(scene, cfg, dirs, impl=impl, device="cuda", soup=soup))
+    return {
+        "device": torch.cuda.get_device_name(0),
+        "config": paths[0],
+        "rays": cfg.rays,
+        "reflections": cfg.reflections,
+        **out,
+        "host_us_per_call": host_us,
     }
 
 

@@ -8,8 +8,9 @@ when its face was declared. Polygon faces are fan-triangulated, matching
 Assimp's aiProcess_Triangulate behaviour on the convex faces found in the
 demo corpus.
 
-This port keeps the pure-Python reader only. The other model formats of the
-JAX package (DXF, STL, PLY, glTF/GLB, OFF) are not ported yet.
+The JAX package's native C++ OBJ parser (rayverb_tpu/native/objparse.cpp)
+is not ported: this reader is pure Python. ``load_mesh`` dispatches on the
+extension to the port's DXF, STL, PLY, glTF/GLB and OFF readers.
 """
 
 from __future__ import annotations
@@ -102,12 +103,39 @@ def load_obj(path: str) -> RawMesh:
 
 
 def load_mesh(path: str) -> RawMesh:
-    """Load a 3D model. Only Wavefront OBJ (+MTL) is ported; other
-    extensions raise a clear error."""
+    """Load a 3D model: OBJ (+MTL), DXF (3DFACE), STL, PLY, glTF/GLB, or OFF
+    (rayverb_tpu/scene/objloader.py:118-153).
+
+    The reference accepts any Assimp-supported format
+    (cmd/parallel_raytrace.1.md:36-39); OBJ + DXF cover its entire demo
+    corpus (room1-3.dxf included), and STL/PLY/glTF/OFF cover the common
+    interchange formats beyond it. Other extensions raise a clear error so
+    callers can convert.
+    """
     ext = os.path.splitext(path)[1].lower()
     if ext == ".obj":
         return load_obj(path)
+    if ext == ".dxf":
+        from .dxfloader import load_dxf
+
+        return load_dxf(path)
+    if ext == ".stl":
+        from .stlply import load_stl
+
+        return load_stl(path)
+    if ext == ".ply":
+        from .stlply import load_ply
+
+        return load_ply(path)
+    if ext in (".gltf", ".glb"):
+        from .gltf import load_gltf
+
+        return load_gltf(path)
+    if ext == ".off":
+        from .gltf import load_off
+
+        return load_off(path)
     raise ValueError(
-        f"Unsupported model format {ext!r}; this port reads .obj only "
-        "(DXF, STL, PLY, glTF/GLB and OFF are not ported yet)"
+        f"Unsupported model format {ext!r}; supported formats: "
+        ".obj, .dxf, .stl, .ply, .gltf, .glb, .off"
     )

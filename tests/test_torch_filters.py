@@ -150,12 +150,41 @@ def test_biquad_content_len_masks_and_matches_jax(rng, reverse):
     _close(got, want, 1e-5)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+def test_biquad_per_series_content_lengths_match_scalar_form(rng, reverse):
+    """Per-series content lengths (the batched finalize's, one per pair):
+    each series equals the scalar form at its own length bit for bit,
+    through biquad_onepass_plain and through biquad_onepass with lengths
+    broadcast over the leading dims."""
+    coeffs = np.stack([_lp_coeffs(), pf.bandpass_biquad_coeffs(700.0, 1400.0, SR),
+                       _lp_coeffs() * 0.5, _lp_coeffs()]).astype(np.float32)
+    x = _signals(rng, (4, 300))
+    lens = np.array([0, 1, 173, 300], np.int32)
+    got = pf.biquad_onepass_plain(torch.from_numpy(x), torch.from_numpy(coeffs),
+                                  reverse=reverse, content_len=torch.from_numpy(lens))
+    for s, n in enumerate(lens):
+        one = pf.biquad_onepass_plain(torch.from_numpy(x[s:s + 1]), torch.from_numpy(coeffs[s:s + 1]),
+                                      reverse=reverse, content_len=int(n))
+        assert got[s].numpy().tobytes() == one[0].numpy().tobytes(), f"series {s}"
+    batch = _signals(rng, (2, 3, 8, 120))
+    pair_lens = torch.tensor([57, 120]).reshape(2, 1, 1)
+    c8 = pf._band_coeffs(PortFilter.LINKWITZ_RILEY, SR, 60.0)[0][0]
+    out = pf.biquad_onepass(torch.from_numpy(batch), c8, reverse=reverse,
+                            content_len=pair_lens).numpy()
+    for p, n in enumerate((57, 120)):
+        one = pf.biquad_onepass(torch.from_numpy(batch[p]), c8, reverse=reverse,
+                                content_len=n).numpy()
+        assert out[p].tobytes() == one.tobytes()
+
+
 def test_biquad_plain_refuses_bad_content_len(rng):
     x = torch.from_numpy(_signals(rng, (2, 50)))
     c = torch.ones((2, 5))
     for bad in (-1, 51):
         with pytest.raises(ValueError, match="content_len"):
             pf.biquad_onepass_plain(x, c, content_len=bad)
+        with pytest.raises(ValueError, match="content lengths"):
+            pf.biquad_onepass_plain(x, c, content_len=torch.tensor([3, bad]))
 
 
 def test_biquad_cuda_wrapper_refuses_cpu_tensors(rng):
@@ -228,7 +257,9 @@ def test_kernel_constants_match_the_wrapper():
 
 
 def _kernel_twin(x, coeffs, reverse, content, tile, stagers):
-    """The schedule of csrc/biquad_scan.cu in numpy float32, per series:
+    """The schedule of csrc/biquad_scan.cu in numpy float32, per series
+    (``content`` an int, or one length per series as the kernel's
+    ``contents`` array gives them):
     the tail [content, t) written +0; tiles of ``tile`` samples walked
     from the first (from the last when reverse); tile 0 loaded by every
     thread; then per step k the chain thread runs tile k in buffer k & 1,
@@ -238,7 +269,9 @@ def _kernel_twin(x, coeffs, reverse, content, tile, stagers):
     s_count, t = x.shape
     y = np.full((s_count, t), np.nan, np.float32)
     f = np.float32
+    lens = np.broadcast_to(np.asarray(content), (s_count,))
     for s in range(s_count):
+        content = int(lens[s])
         b0, b1, b2, a1, a2 = (f(v) for v in coeffs[s])
         y[s, content:] = f(0.0)
         ntiles = -(-content // tile)
@@ -288,5 +321,21 @@ def test_kernel_schedule_twin_matches_plain(rng, reverse, content):
     twin = _kernel_twin(x, coeffs, reverse, content, tile=16, stagers=5)
     plain = pf.biquad_onepass_plain(torch.from_numpy(x), torch.from_numpy(coeffs),
                                     reverse=reverse, content_len=content).numpy()
+    assert not np.isnan(twin).any()
+    assert twin.tobytes() == plain.tobytes()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_kernel_schedule_twin_per_series_lengths_matches_plain(rng, reverse):
+    """The twin with one content length per series (0, 1, around the tile
+    edges of 16, and full) equals biquad_onepass_plain given the same
+    (S,) lengths bit for bit, and writes every sample."""
+    lens = np.array([0, 1, 15, 16, 17, 33, 53, 64], np.int32)
+    x = _signals(rng, (len(lens), 64))
+    coeffs = np.tile(np.stack([_lp_coeffs(), pf.bandpass_biquad_coeffs(700.0, 1400.0, SR)]),
+                     (len(lens) // 2, 1)).astype(np.float32)
+    twin = _kernel_twin(x, coeffs, reverse, lens, tile=16, stagers=5)
+    plain = pf.biquad_onepass_plain(torch.from_numpy(x), torch.from_numpy(coeffs),
+                                    reverse=reverse, content_len=torch.from_numpy(lens)).numpy()
     assert not np.isnan(twin).any()
     assert twin.tobytes() == plain.tobytes()

@@ -277,7 +277,8 @@ def test_fused_scan_finalize_matches_jax(scenes, monkeypatch):
 
 def test_fused_scan_finalize_goes_through_biquad_onepass(scenes, monkeypatch):
     """Each scan pass is one biquad_onepass call over every channel and
-    band, with the content length; reversed passes run reversed."""
+    band of the render's one pair, with its content length; reversed passes
+    run reversed."""
     calls = []
     real = filters.biquad_onepass
 
@@ -290,7 +291,8 @@ def test_fused_scan_finalize_goes_through_biquad_onepass(scenes, monkeypatch):
     _, info = port_render.render_fused(scenes["large_square"], port_parse_config(_doc()),
                                        random_directions(64, seed=2), device="cpu")
     assert [c[1] for c in calls] == [False, True, False, True]
-    assert all(c[0][:2] == (2, 8) and c[2] == info["content_length"] for c in calls)
+    assert all(c[0][:3] == (1, 2, 8) and c[2].tolist() == [[[info["content_length"]]]]
+               for c in calls)
 
 
 def test_fused_fir_finalize_matches_jax(scenes):
