@@ -61,19 +61,22 @@ Phases, each printed as one JSON line with its wall time:
               32, 1,024 and 32,768 blocks (the last sorts its keys in device
               memory); k per group of the north star's primary, bounce and
               shadow batches
- 10. biquad   the biquad scan kernel against its plain version, bit for
-              bit, on the card and on the CPU (2 channels x 8 bands x
-              16,384 samples of the vault's lowpass, forward and reverse,
-              with and without a content length, and with ragged per-series
-              content lengths: 0, 1, around the 4,096-sample tiles, and
-              full, in one launch); the vault's four-pass
-              bank at 524,288 samples against scipy's float64 lfilter
-              (1e-4 of peak); ms per pass, bytes and dependency bounds
+ 10. biquad   the biquad scan kernel (a chunked parallel recurrence)
+              against its plain version, bit for bit, on the card and on
+              the CPU (2 channels x 8 bands x 16,384 samples of the vault's
+              lowpass, forward and reverse, with and without a content
+              length, and with ragged per-series content lengths: 0, 1,
+              around 4,096-sample boundaries, around the 256-sample
+              chunks and 8,192-sample tiles, and full, in one launch); the
+              vault's four-pass bank at 524,288 samples against scipy's
+              float64 lfilter (1e-4 of peak); device ms per pass, bytes
+              and chain bounds
  11. modular  the CLI with --pipeline modular on the full vault, cold and
               warm, --stats: walls, phases, the trace's ray chunk, every
               sweep through the sweep and order kernels and every filter
               pass through the biquad kernel; the kernel against its plain
-              version at the main path's first pass shape (ms, plain ms)
+              version at the main path's first pass shape (device ms,
+              call ms, plain ms)
  12. mod/fus  pipeline.render (scan) against render_fused on the vault's
               directions, trim_predelay off (-60 dB; the trimmed renders
               are compared too, not gated: the fused whole-bin predelay
@@ -1088,18 +1091,24 @@ def _unpack_record(soup, args, order, slices, m):
 # renders give the scan) against scipy's float64 lfilter
 BIQUAD_CHECK_SAMPLES = 16_384
 BIQUAD_CHECK_CONTENT = 12_345
-# per-series content lengths of the ragged check, one per series of the
-# vault's bank (the kernel's tiles are 4,096 samples)
+# per-series content lengths of the ragged checks, one per series of the
+# vault's bank: around 4,096-sample boundaries, and around the kernel's
+# chunks (256 samples) and tiles (8,192)
 BIQUAD_RAGGED = (0, 1, 4095, 4096, 4097, 8191, 8192, 8193, 100, 12_345, 16_383, 16_384,
                  16_384, 2048, 6000, 9999)
+BIQUAD_RAGGED_CHUNKED = (0, 1, 255, 256, 257, 511, 512, 513, 8191, 8192, 8193, 8447, 8448,
+                         12_345, 16_383, 16_384)
 BIQUAD_FULL_SAMPLES = 524_288
 # the full-length check's tolerance, relative to the float64 reference's
 # peak: the float32 state drifts from float64 over the series, and the JAX
 # scan is validated against scipy to ~1e-4 (rayverb_tpu/ops/filters.py:161)
 BIQUAD_FULL_TOL = 1e-4
 # cycles per sample of the recurrence's dependent chain (a multiply, a
-# subtract and an add from one output to the next, ~4 cycles each)
+# subtract and an add from one output to the next, ~4 cycles each), and per
+# float64 carry step of the chunked schedule (a multiply and two adds, ~8
+# cycles each)
 BIQUAD_CHAIN_CYCLES = 12
+BIQUAD_CARRY_CYCLES = 24
 # FP32 operations per sample of one pass (5 multiplies, 4 adds/subtracts)
 BIQUAD_FLOPS_PER_SAMPLE = 9
 # the raw_and_dump phase's population: the vault at this many rays
@@ -1115,19 +1124,27 @@ def _sm_clock_hz():
     return float(proc.stdout.strip().splitlines()[0]) * 1e6
 
 
-def _biquad_bounds(series, samples):
-    """Least times of one biquad pass over (series, samples): bytes (read
-    once, written once) over HBM bandwidth, FP32 operations over the FP32
-    peak, and the dependent chain of one series at the card's maximum
-    clock (the bound of a one-thread-per-series recurrence)."""
-    bytes_ms = 2 * 4 * series * samples / HBM_BYTES_PER_S * 1e3
-    ops_ms = BIQUAD_FLOPS_PER_SAMPLE * series * samples / FP32_PEAK * 1e3
+def _biquad_bounds(series, samples, content=None):
+    """Least times of one biquad pass over (series, samples) whose series
+    hold ``content`` samples in all (None: every sample): bytes (the
+    content read once, every sample written once) over HBM bandwidth, FP32
+    operations over the FP32 peak; and the chunked schedule's own chain at
+    the card's maximum clock: one lane's two walks of a chunk and its
+    float64 carry steps (twice through the warp, once per tile before its
+    own)."""
+    from rayverb_tpu_torch.ops.filters import CHUNK, TILE
+
+    content = series * samples if content is None else content
+    bytes_ms = 4 * (content + series * samples) / HBM_BYTES_PER_S * 1e3
+    ops_ms = BIQUAD_FLOPS_PER_SAMPLE * content / FP32_PEAK * 1e3
+    tiles = -(-samples // (CHUNK * TILE))
+    chain = 2 * CHUNK * BIQUAD_CHAIN_CYCLES + (2 * TILE + tiles - 1) * BIQUAD_CARRY_CYCLES
     return {
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes_bound_ms": bytes_ms,
         "ops_bound_ms": ops_ms,
-        "dependency_bound_ms": samples * BIQUAD_CHAIN_CYCLES / _sm_clock_hz() * 1e3,
+        "chain_bound_ms": chain / _sm_clock_hz() * 1e3,
     }
 
 
@@ -1168,9 +1185,13 @@ def _bit_mismatch(a, b):
 def _phase_biquad(ph, dev):
     """The biquad_scan kernel against its plain version, bit for bit, on
     the card and on the CPU: the vault's lowpass forward and reverse, with
-    and without a content length (the samples after it +0); then the whole
-    four-pass bank at the vault's length against scipy's float64 lfilter;
-    ms per pass, bounds and registers."""
+    and without a content length (the samples after it +0), and with
+    ragged per-series lengths around 4,096-sample boundaries and around
+    the kernel's chunks and tiles; then the whole four-pass bank at the
+    vault's length against scipy's float64 lfilter, and its first forward
+    and reverse passes at that length bit for bit; device ms per pass
+    (torch.profiler) and ms per call (CUDA events), bounds and
+    registers."""
     import numpy as np
     import scipy.signal as sps
     import torch
@@ -1201,9 +1222,11 @@ def _phase_biquad(ph, dev):
                 "peak": float(plain.abs().max()),
             })
     # ragged per-series content lengths (the batched finalize's): 0, 1,
-    # around the kernel's tile edges, and full, one launch for all series
-    lens = torch.tensor(BIQUAD_RAGGED[:series], dtype=torch.int32, device=dev)
-    for coeffs, reverse in passes[:2]:
+    # around the kernels' chunk and tile edges, and full, one launch for
+    # all series
+    for coeffs, reverse, ragged in [(c, r, g) for g in (BIQUAD_RAGGED, BIQUAD_RAGGED_CHUNKED)
+                                    for c, r in passes[:2]]:
+        lens = torch.tensor(ragged[:series], dtype=torch.int32, device=dev)
         kern = biquad_cuda.biquad_scan_cuda(x, coeffs, reverse=reverse, content_len=lens)
         plain = biquad_onepass_plain(x, coeffs, reverse=reverse, content_len=lens)
         cpu = biquad_onepass_plain(x.cpu(), coeffs.cpu(), reverse=reverse, content_len=lens.cpu())
@@ -1239,11 +1262,24 @@ def _phase_biquad(ph, dev):
     if not np.isfinite(err) or err >= BIQUAD_FULL_TOL:
         raise AssertionError(f"biquad kernel differs from float64 lfilter: {err}")
     xf = torch.from_numpy(full).to(dev)
+    # the first forward and reverse passes at the full length, bit for bit:
+    # 64 tiles a series, so the chained scan's fold of its predecessors'
+    # aggregates runs its second round of 32 (tiles 33 on)
+    long_cases = []
+    for coeffs, reverse in passes[:2]:
+        kern = biquad_cuda.biquad_scan_cuda(xf, coeffs, reverse=reverse)
+        plain = biquad_onepass_plain(xf, coeffs, reverse=reverse)
+        torch.cuda.synchronize()
+        long_cases.append({"reverse": reverse, "mismatch": _bit_mismatch(kern, plain),
+                           "max_abs_err": float((kern - plain).abs().max())})
+    ph.out["full_length"]["kernel_vs_plain"] = long_cases
+    if any(c["mismatch"] for c in long_cases):
+        raise AssertionError(f"biquad kernel != plain at {BIQUAD_FULL_SAMPLES}: {long_cases}")
     coeffs = passes[0][0]
-    ph.out["ms_per_pass"] = {
-        "forward": _cuda_ms(lambda: biquad_cuda.biquad_scan_cuda(xf, coeffs), 10),
-        "reverse": _cuda_ms(lambda: biquad_cuda.biquad_scan_cuda(xf, coeffs, reverse=True), 10),
-    }
+    calls = {"forward": lambda: biquad_cuda.biquad_scan_cuda(xf, coeffs),
+             "reverse": lambda: biquad_cuda.biquad_scan_cuda(xf, coeffs, reverse=True)}
+    ph.out["ms_per_pass"] = {k: _profiled_ms(fn, "biquad_scan", 20) for k, fn in calls.items()}
+    ph.out["call_ms_per_pass"] = {k: _cuda_ms(fn, 20) for k, fn in calls.items()}
     ph.out["bounds"] = _biquad_bounds(series, BIQUAD_FULL_SAMPLES)
     log = cuda_build.build_info["biquad_scan"]["log"]
     ph.out["ptxas"] = [ln.strip() for ln in log.splitlines()
@@ -1254,8 +1290,9 @@ def _phase_biquad(ph, dev):
 def _biquad_at_shape(dev, shape, reverse):
     """The kernel and its plain version at a pass shape of the main path:
     (S, T) random band signals, the vault's first coefficients; bit for
-    bit, with the kernel's ms (CUDA events) and the plain version's (one
-    call)."""
+    bit, with the kernel's device ms per launch (torch.profiler), its ms
+    per call (CUDA events, the wrapper's host work included) and the plain
+    version's (one call)."""
     import numpy as np
     import torch
 
@@ -1273,7 +1310,10 @@ def _biquad_at_shape(dev, shape, reverse):
     plain_ms = (time.perf_counter() - t0) * 1e3
     rec = {"shape": [s, t], "reverse": reverse, "mismatch": _bit_mismatch(kern, plain),
            "max_abs_err": float((kern - plain).abs().max()),
-           "ms": _cuda_ms(lambda: biquad_cuda.biquad_scan_cuda(x, coeffs, reverse=reverse), 10),
+           "ms": _profiled_ms(lambda: biquad_cuda.biquad_scan_cuda(x, coeffs, reverse=reverse),
+                              "biquad_scan", 20),
+           "call_ms": _cuda_ms(lambda: biquad_cuda.biquad_scan_cuda(x, coeffs, reverse=reverse),
+                               20),
            "plain_ms": plain_ms, **_biquad_bounds(s, t)}
     if rec["mismatch"]:
         raise AssertionError(f"biquad kernel != plain at the main path's shape: {rec}")
@@ -1574,9 +1614,11 @@ class _ScanCapture:
 def _scan_passes_vs_plain(kept, contents):
     """The captured scan passes against biquad_onepass_plain on the card:
     the kernel's own output of that launch, bit for bit, and the per-series
-    lengths equal to the batch's per-pair contents."""
+    lengths equal to the batch's per-pair contents; the kernel's device ms
+    per launch on those inputs (torch.profiler)."""
     import torch
 
+    from rayverb_tpu_torch.ops import biquad_cuda
     from rayverb_tpu_torch.ops.filters import biquad_onepass_plain
 
     out = {}
@@ -1591,7 +1633,10 @@ def _scan_passes_vs_plain(kept, contents):
                     "lens_max": int(lens.max()), "lens_are_contents": bool(torch.equal(lens, want_lens)),
                     "mismatch": int((plain.view(torch.int32) != got.view(torch.int32)).sum()),
                     "finite": bool(torch.isfinite(got).all()),
-                    "plain_s": time.perf_counter() - t0}
+                    "plain_s": time.perf_counter() - t0,
+                    "ms": _profiled_ms(lambda: biquad_cuda.biquad_scan_cuda(
+                        data, coeffs, reverse=key == "reverse", content_len=lens),
+                        "biquad_scan", 20)}
         if out[key]["mismatch"] or not out[key]["lens_are_contents"] or not out[key]["finite"]:
             raise AssertionError(f"the datagen scan's {key} pass differs from the plain "
                                  f"version: {out[key]}")
@@ -1925,6 +1970,7 @@ def main() -> int:
         with Phase("datagen") as ph:
             datagen_runs = _phase_datagen(ph, dev)
             datagen_scan = ph.out["scan_finalize"]
+            datagen_scan_passes = ph.out["scan_passes_vs_plain"]
     except Exception:
         traceback.print_exc()
         return 1
@@ -2010,19 +2056,22 @@ def main() -> int:
         "launches_by_path": {k: r["biquad_launches"] for k, r in paths.items()},
         "max_abs_err": max([biquad_main["max_abs_err"]]
                            + [c["max_abs_err"] for c in biquad["cases"]]),
-        # one pass at the modular vault's first filter shape (CUDA events);
-        # the plain version once at the same shape
+        # one pass at the modular vault's first filter shape: device time
+        # per launch (torch.profiler); call_ms under CUDA events, wrapper
+        # included; the plain version once at the same shape
         "ms": biquad_main["ms"],
+        "call_ms": biquad_main["call_ms"],
         "plain_ms": biquad_main["plain_ms"],
         "shape": biquad_main["shape"],
         "bound_ms": biquad_main["bound_ms"],
         "bound_by": biquad_main["bound_by"],
-        "dependency_bound_ms": biquad_main["dependency_bound_ms"],
+        "chain_bound_ms": biquad_main["chain_bound_ms"],
         # no PyTorch call computes an IIR scan
         "library_ms": None,
         # the batched scan finalize: one launch per pass for all pairs
         "launches_datagen_scan": datagen_scan["biquad_launches"],
         "series_per_launch_datagen_scan": datagen_scan["series_per_launch"],
+        "ms_datagen_scan_pass": {k: v["ms"] for k, v in datagen_scan_passes.items()},
         "ms_per_pass_524288": biquad["ms_per_pass"],
         "bounds_524288": biquad["bounds"],
         "full_length_max_err_over_peak": biquad["full_length"]["max_err_over_peak"],

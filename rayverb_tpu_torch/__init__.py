@@ -4,8 +4,9 @@ The JAX package ``rayverb_tpu`` stays the reference. This package mirrors
 its module names and computes the same renders (the fused one and the
 modular pipeline) with PyTorch tensors; the one TPU kernel on their path,
 the closest-hit sweep, is a hand-written CUDA kernel here
-(csrc/closest_hit.cu), and so is the filter bank's sequential biquad scan,
-which the JAX package runs as lax.scan (csrc/biquad_scan.cu). It imports
+(csrc/closest_hit.cu), and so is the filter bank's biquad scan, a chunked
+parallel recurrence where the JAX package runs lax.scan
+(csrc/biquad_scan.cu). It imports
 nothing of JAX and nothing of ``rayverb_tpu``.
 """
 

@@ -10,7 +10,7 @@ Same four positionals, error texts and exit codes as rayverb_tpu/cli.py
 
 The default render is the fused one (ops.render.render_fused); ``--pipeline
 modular`` (pipeline.render) runs the reference's stages one by one, with
-the exact sequential scan filters by default. ``--save-raw``,
+the causal time-domain scan filters by default. ``--save-raw``,
 ``--from-raw`` and ``--dump-paths`` imply the modular pipeline, as in the
 JAX CLI. Speaker and HRTF configs, on the GPU unless ``--device cpu`` is
 given. With ``--stats`` the phase walls are printed, and with
@@ -48,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write per-ray reflection paths as JSONL (the reference's "
                         "DIAGNOSTIC impulse.dump)")
     p.add_argument("--filter-method", choices=("scan", "fft"), default="scan",
-                   help="IIR filters as exact sequential scans or the FFT fast "
+                   help="IIR filters as causal time-domain scans or the FFT fast "
                         "path (modular pipeline only)")
     p.add_argument("--pipeline", choices=("fused", "modular"), default="fused",
                    help="fused: whole render on the device (fast path); "

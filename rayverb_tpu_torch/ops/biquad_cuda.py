@@ -1,6 +1,8 @@
 """Wrapper of the hand-written CUDA biquad scan (csrc/biquad_scan.cu), which
 runs the crossover bank's IIR recurrence on the card where the JAX package
-runs lax.scan (rayverb_tpu/ops/filters.py::biquad_onepass, :157).
+runs lax.scan (rayverb_tpu/ops/filters.py::biquad_onepass, :157), as a
+chunked parallel recurrence (one warp lane per chunk of filters.CHUNK
+samples, one warp per tile of filters.TILE chunks).
 
 The kernel is built with nvcc at first use (cuda_build) and called through
 its C interface with ctypes. This module imports without nvcc or a GPU;
@@ -14,15 +16,16 @@ import ctypes
 
 import torch
 
+from .filters import CHUNK, TILE
+
 # launches since import (or since the caller last reset it); the wrapper
 # adds one per launch and nowhere else
 launches = 0
 
-# samples per shared-memory tile of the kernel (kTile), read by the CPU
-# tests' twin of its schedule
-TILE = 4096
-
 _fn = None
+# (device index, stream) -> (sync, agg): the kernel's chained-scan scratch,
+# zero between launches (the kernel's last block clears it)
+_scratch: dict = {}
 
 
 def _kernel():
@@ -33,7 +36,8 @@ def _kernel():
         lib = load_library("biquad_scan", ["biquad_scan.cu"])
         fn = lib.rv_biquad_scan
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -43,6 +47,21 @@ def build() -> None:
     """Build and load the kernel library now (it is otherwise built at the
     first launch)."""
     _kernel()
+
+
+def _scratch_for(dev, stream, blocks):
+    """The chained scan's scratch on ``stream``, grown to ``blocks``: a zeroed
+    int32 (2 + capacity) ticket, count and flags, and (2 x capacity) float64
+    aggregates. The kernel leaves it zero, so it is zeroed only when
+    made."""
+    key = (dev.index, stream)
+    have = _scratch.get(key)
+    if have is None or have[1].numel() < 2 * blocks:
+        cap = max(blocks, 1024)
+        have = (torch.zeros(2 + cap, dtype=torch.int32, device=dev),
+                torch.empty(2 * cap, dtype=torch.float64, device=dev))
+        _scratch[key] = have
+    return have
 
 
 def biquad_scan_cuda(data, coeffs, *, reverse: bool = False, content_len=None):
@@ -76,24 +95,29 @@ def biquad_scan_cuda(data, coeffs, *, reverse: bool = False, content_len=None):
             raise ValueError(f"per-series content lengths must be a contiguous ({s},) "
                              f"int32 tensor on {dev}, got {tuple(contents.shape)} "
                              f"{contents.dtype} on {contents.device}")
-        if s and not (0 <= int(contents.min()) and int(contents.max()) <= t):
-            raise ValueError(f"content lengths must lie in [0, {t}]")
+        if s:
+            lo, hi = (int(v) for v in torch.aminmax(contents))
+            if not (0 <= lo and hi <= t):
+                raise ValueError(f"content lengths must lie in [0, {t}]")
         content = t
     else:
         content = t if content_len is None else int(content_len)
         if not 0 <= content <= t:
             raise ValueError(f"content_len must lie in [0, {t}], got {content}")
-    if s >= 2**31 or t >= 2**31:
-        raise ValueError(f"the kernel takes fewer than 2**31 series and samples, got {s} x {t}")
+    blocks = s * -(-t // (CHUNK * TILE))
+    if t >= 2**31 or blocks >= 2**31:
+        raise ValueError(f"the kernel takes fewer than 2**31 samples and blocks, got {s} x {t}")
     out = torch.empty_like(data)
     if s == 0 or t == 0:
         return out
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        sync, agg = _scratch_for(dev, stream, blocks)
         err = fn(data.data_ptr(), out.data_ptr(), coeffs.data_ptr(), s, t,
                  content, None if contents is None else contents.data_ptr(),
-                 int(bool(reverse)), stream)
+                 int(bool(reverse)), sync.data_ptr(), agg.data_ptr(),
+                 agg.numel() // 2, stream)
     if err != 0:
         raise RuntimeError(f"biquad scan kernel launch failed: CUDA error {err}")
     launches += 1

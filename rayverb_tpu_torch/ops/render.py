@@ -12,8 +12,8 @@ rayverb_tpu/ops/render.py::render_fused, :1157).
   finalize     = cross-ray image dedup (sort by chain hash, keep first),
                  image attenuation + binning, predelay shift, content length
                  (``_finalize_hist``); crossover filter bank as FFT passes
-                 (or, with RAYVERB_FINALIZE_FILTER=scan, as sequential scans
-                 on the biquad_scan kernel; the windowed-sinc bank as one
+                 (or, with RAYVERB_FINALIZE_FILTER=scan, as causal scans on
+                 the biquad_scan kernel; the windowed-sinc bank as one
                  FIR convolution), mixdown, normalise, volume, trim length
                  (``_finalize_filter``)
 
@@ -501,7 +501,7 @@ def _finalize_filter(hist, content_len, responses, volume_scale, *,
 
     filter_method 'fft': flip-free truncated FFT passes, ``responses`` (P,
     8, nfft//2+1, 2) float32 (re, im), reversed passes pre-conjugated.
-    'scan': the exact sequential biquads (the biquad_scan kernel on the
+    'scan': the causal time-domain biquads (the biquad_scan kernel on the
     card, one launch per pass for every pair's series), ``responses`` (P,
     8, 5) float32 coefficients; a reversed pass runs as a reverse scan on
     the unflipped signal, from content_len - 1 (the direction is the

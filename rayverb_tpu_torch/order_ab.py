@@ -42,31 +42,34 @@ def _emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def _parent_wrapper(parent):
-    """The other checkout's block_order_cuda, on its own kernel library."""
+def _parent_wrapper(parent, cu="closest_hit.cu", wrapper="intersect_cuda",
+                    fn="block_order_cuda", lib="order_ab_parent.so"):
+    """The other checkout's wrapper ``fn`` (from ops/``wrapper``.py) on its
+    own kernel library: its csrc/``cu`` built with this checkout's nvcc
+    flags into PARENT/rayverb_tpu_torch/_build/``lib``."""
     from . import cuda_build
 
-    src = os.path.join(parent, "rayverb_tpu_torch", "csrc", "closest_hit.cu")
+    src = os.path.join(parent, "rayverb_tpu_torch", "csrc", cu)
     out_dir = os.path.join(parent, "rayverb_tpu_torch", "_build")
     os.makedirs(out_dir, exist_ok=True)
-    lib_path = os.path.join(out_dir, "order_ab_parent.so")
+    lib_path = os.path.join(out_dir, lib)
     proc = subprocess.run(
         [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", lib_path, src],
         capture_output=True, text=True, timeout=cuda_build.NVCC_TIMEOUT_S,
     )
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    lib = ctypes.CDLL(lib_path)
+    so = ctypes.CDLL(lib_path)
     spec = importlib.util.spec_from_file_location(
-        "rayverb_tpu_torch.ops._order_ab_parent",
-        os.path.join(parent, "rayverb_tpu_torch", "ops", "intersect_cuda.py"),
+        f"rayverb_tpu_torch.ops._ab_parent_{wrapper}",
+        os.path.join(parent, "rayverb_tpu_torch", "ops", f"{wrapper}.py"),
     )
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     # its _kernel() binds its own argument types on the library it loads
-    with mock.patch.object(cuda_build, "load_library", lambda *a: lib):
+    with mock.patch.object(cuda_build, "load_library", lambda *a: so):
         mod._kernel()
-    return mod.block_order_cuda
+    return getattr(mod, fn)
 
 
 def _smoke():

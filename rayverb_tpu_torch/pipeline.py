@@ -5,7 +5,7 @@ The orchestration of cmd/main.cpp:241-337, stage by stage, on ``device``
 (None: the card): dense trace (engine.Raytracer), output population with
 the image dedup on the host, attenuation, optional predelay fix, flatten
 (ops/histogram.py), filter / mix / trim (ops/postprocess.py). Its filters
-default to the exact sequential scans (the biquad_scan kernel on the card);
+default to the causal time-domain scans (the biquad_scan kernel on the card);
 the raw impulses can be saved and rendered again without tracing
 (render_from_raw), and the trace outputs stay available for the path dump.
 """

@@ -5,7 +5,9 @@ tests/test_datagen.py, moved a hair off the box's symmetry plane x = 0),
 96 rays and 8 reflections, 8 kHz. On the plane, two of pair 0's image
 chains reflect exactly on a diagonal that two coplanar triangles share,
 where float32 rounding decides admission; the tests at the unmoved inputs
-pin those records and hold the port's verdict to a float64 witness.
+pin those records, hold the port's verdict to a float64 witness, and show
+that the port computes those chains as the JAX helpers do eagerly, bit for
+bit, while the JAX trace's jit-fused arithmetic rejects them.
 
 Tolerances, as the single-pair tests hold them:
   - binning on the same rows: 1e-6 of peak (the sums' order differs)
@@ -659,6 +661,67 @@ def test_symmetry_plane_witness_in_float64(box, plane_traces):
         hits = _closest_f64(last, (mic - last) / dist, tris)
         assert not hits or hits[0][0] > dist, f"ray {row}: the image is occluded"
         assert int(got.image_index[row, slot]) == tri1
+
+
+def _image_chain(verts, mirror_tri, mirror_point, normalize, intersect, stack, src, mic, tris):
+    """The trace's image-source admission for the chains of ``tris`` (rows,
+    bounces) triangle indices, as ops/trace.py composes it in both
+    packages: each bounce's triangle mirrored through the chain before it,
+    the mic mirrored through each, the image direction from the source,
+    and each segment's single-triangle t (0 where it misses)."""
+    chain, image = [], mic
+    for k in range(tris.shape[1]):
+        cur = verts(tris[:, k])
+        for plane in chain:
+            cur = mirror_tri(cur, plane)
+        chain.append(cur)
+        image = mirror_point(image, cur)
+    d = normalize(image - src)
+    chain = stack(chain)
+    return chain, image, d, intersect(src[:, None, :], d[:, None, :], chain)
+
+
+def test_symmetry_plane_verdict_is_set_by_xla_fusion(box, plane_traces):
+    """The cause of the disputed records: the port's image-chain helpers
+    (trace._mirror_tri, _mirror_point, _safe_normalize,
+    intersect.intersect_triangle) equal the JAX package's own helpers run
+    eagerly, bit for bit, at every step of each disputed chain (the
+    mirrored chain, the mirrored mic, the image direction and the
+    segments' t), and eagerly every segment lands in front, so both admit
+    the image. The same composition under jax.jit rounds otherwise
+    (fused), and segment 2's t, the reflection on the shared diagonal,
+    becomes 0: the JAX trace's rejection comes from how XLA fuses it, not
+    from an operation the port could follow."""
+    from rayverb_tpu_torch.constants import EPSILON
+
+    _, _, bounce_tris, _ = plane_traces
+    rows = sorted(row for row, _ in PLANE_DISPUTED)
+    tris = bounce_tris[rows, :PLANE_DISPUTED_SLOT]
+    n = len(rows)
+    src = np.broadcast_to(PLANE_SOURCES[0], (n, 3)).copy()
+    mic = np.broadcast_to(PLANE_MICS[0], (n, 3)).copy()
+    jsoup = jax_isect.soup_from_scene(box)
+
+    def jax_chain(s, m, t):
+        return _image_chain(jsoup.verts, jax_trace._mirror_tri, jax_trace._mirror_point,
+                            jax_trace._safe_normalize, jax_isect.intersect_triangle,
+                            lambda c: jnp.stack(c, axis=1), s, m, t)
+
+    j_args = (jnp.asarray(src), jnp.asarray(mic), jnp.asarray(tris))
+    eager = [np.asarray(v) for v in jax_chain(*j_args)]
+    fused = [np.asarray(v) for v in jax.jit(jax_chain)(*j_args)]
+    port = [v.numpy() for v in _image_chain(
+        port_isect.soup_from_scene(box, device="cpu").verts, port_trace._mirror_tri,
+        port_trace._mirror_point, port_trace._safe_normalize, port_isect.intersect_triangle,
+        lambda c: torch.stack(c, dim=1), torch.from_numpy(src), torch.from_numpy(mic),
+        torch.from_numpy(tris))]
+    for name, e, p in zip(("chain", "image", "direction", "t"), eager, port):
+        assert e.dtype == p.dtype == np.float32 and e.tobytes() == p.tobytes(), name
+    assert np.all(eager[3] > EPSILON)
+    np.testing.assert_array_equal(fused[3][:, PLANE_BOUNCE_ON_EDGE], 0.0)
+    others = np.ones(PLANE_DISPUTED_SLOT, bool)
+    others[PLANE_BOUNCE_ON_EDGE] = False
+    assert np.all(fused[3][:, others] > EPSILON)
 
 
 def test_symmetry_plane_batch_difference_is_the_disputed_images(box, dirs, monkeypatch):
