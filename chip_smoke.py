@@ -42,12 +42,15 @@ Phases, each printed as one JSON line with its wall time:
               the CPU fed the card's trace records (records within the CPU
               tests' tolerances, IRs within -60 dB)
   7. hall     the north-star hall (scripts/gen_hall.py, 101,568 triangles,
-              1,024 table blocks) generated into the temporary directory:
-              8,192 Morton-sorted primary rays, kernel against plain, bit for
-              bit (results, counters, order tables)
+              1,024 table blocks) generated into the temporary directory
+              and loaded through the native OBJ parser (which must build
+              and load) and through the pure-Python reader, each parse and
+              scene load with its wall, the two parses bit-equal: 8,192
+              Morton-sorted primary rays, kernel against plain, bit for bit
+              (results, counters, order tables)
   8. north    the north star: 1,000,000 rays x 16 reflections through the
-              hall (and the hall's load time through the pure-Python OBJ
-              reader, beside the card's name), stereo HRTF, cold and warm,
+              hall (and the hall's load times, beside the card's name),
+              stereo HRTF, cold and warm,
               with walls, phases, the
               chunk chosen, peak device memory, executed pairs by kind and
               the order kernel's time at this table (1M primary rays, equal
@@ -100,7 +103,20 @@ Phases, each printed as one JSON line with its wall time:
               dB); 8 pairs through the scan finalize with the
               Linkwitz-Riley bank (one biquad launch per pass for all pairs)
               against the fft one (-60 dB); 8 pairs on room1.dxf
- 15. kernels  one JSON line per the port's kernel table (the sweep, the
+ 15. sharded  parallel.render_fused_sharded at world size one over NCCL
+              (make_mesh() on a file:// store in the temporary directory):
+              the north star cold and warm against render_fused's warm IR
+              of phase 8 (max|d| <= 1e-6 x peak; bit equality printed),
+              every sweep through the order and sweep kernels, with the
+              info (gathered and distinct image rows, chunks per rank),
+              walls, timings and peak memory, and both paths' warm walls
+              in turns; then the vault with
+              RAYVERB_FINALIZE_FILTER=scan (one biquad launch per pass)
+              against render_fused's scan render
+ 16. datagen_mesh  config 5 through render_irs_batched(mesh=make_mesh(
+              axis="batch")), cold and warm, bit for bit against the no-mesh
+              batch, with walls and pairs/s
+ 17. kernels  one JSON line per the port's kernel table (the sweep, the
               block order, the unpack kernel with the card's launch floor,
               and the biquad scan); the device line also carries the
               instruction counts of the sweep kernel's loops, read from
@@ -851,10 +867,41 @@ def _hall(ph, tmp):
     path = os.path.join(tmp, "hall.obj")
     t0 = time.perf_counter()
     ph.out["triangles"] = gen_hall.generate(path, HALL_TRIANGLES)
-    t1 = time.perf_counter()
-    scene = load_scene(path, os.path.join(REPO, "assets", "materials", "mat.json"))
-    ph.out.update(generate_s=t1 - t0, load_s=time.perf_counter() - t1)
-    return scene
+    ph.out["generate_s"] = time.perf_counter() - t0
+    ph.out.update(_hall_loads(path))
+    return load_scene(path, os.path.join(REPO, "assets", "materials", "mat.json"))
+
+
+def _hall_loads(path):
+    """The hall's scene load (OBJ parse + compile) and its parse alone
+    through the native parser and through the pure-Python reader
+    (RAYVERB_NO_NATIVE=1), each with its wall; the native library must have
+    built and loaded, and both parses must agree bit for bit."""
+    from rayverb_tpu_torch import cuda_build
+    from rayverb_tpu_torch.native import get_lib
+    from rayverb_tpu_torch.scene import load_scene
+    from rayverb_tpu_torch.scene.objloader import load_obj
+
+    mat = os.path.join(REPO, "assets", "materials", "mat.json")
+    t0 = time.perf_counter()
+    if get_lib() is None:
+        raise AssertionError("the native OBJ parser did not build or load")
+    out = {"native_build_s": time.perf_counter() - t0,
+           "native_library": os.path.relpath(cuda_build.build_info["objparse"]["path"], REPO)}
+    meshes = {}
+    for label, env in (("native", {}), ("python", {"RAYVERB_NO_NATIVE": "1"})):
+        with mock.patch.dict(os.environ, env):
+            t0 = time.perf_counter()
+            meshes[label] = load_obj(path)
+            out[f"parse_s_{label}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            load_scene(path, mat)
+            out[f"load_scene_s_{label}"] = time.perf_counter() - t0
+    a, b = meshes["native"], meshes["python"]
+    if (a.vertices.tobytes() != b.vertices.tobytes() or a.faces.tobytes() != b.faces.tobytes()
+            or a.face_materials != b.face_materials):
+        raise AssertionError("the native and Python OBJ parsers differ on the hall")
+    return out
 
 
 def _phase_hall(ph, dev, scene):
@@ -878,10 +925,11 @@ def _phase_hall(ph, dev, scene):
     return rec
 
 
-def _phase_north_star(ph, dev, scene, hall_load_s):
+def _phase_north_star(ph, dev, scene, hall_loads):
     """The north star, cold and warm, then a one-pass against a chunked
-    render of a smaller population; the hall's load time (the pure-Python
-    OBJ reader, ``hall_load_s``) beside the card's name."""
+    render of a smaller population; the hall's load times (``hall_loads``:
+    the native OBJ parser and the pure-Python reader) beside the card's
+    name. Returns (runs, the warm IR)."""
     import numpy as np
     import torch
 
@@ -906,6 +954,7 @@ def _phase_north_star(ph, dev, scene, hall_load_s):
             ir, info = render_fused(scene, cfg, dirs, device=dev, stats=True)
             wall = time.perf_counter() - t0
             biquad_launches = biquad_cuda.launches
+            warm_ir = ir
             run = {
                 "run": label, "wall_s": wall,
                 "trace_bin_s": info["timings"]["trace_bin"],
@@ -960,7 +1009,7 @@ def _phase_north_star(ph, dev, scene, hall_load_s):
                                        ray_chunk=CHUNK_CHECK[1])
     err = _ir_error(chunked, one)
     ph.out.update({
-        "card": _nvidia_smi(), "hall_load_scene_s_pure_python_obj": hall_load_s,
+        "card": _nvidia_smi(), "hall_loads": hall_loads,
         "hall_triangles": scene.num_triangles,
         "table_blocks": nb, "rays": cfg.rays,
         "reflections": cfg.reflections, "runs": runs,
@@ -977,7 +1026,7 @@ def _phase_north_star(ph, dev, scene, hall_load_s):
         raise AssertionError(f"chunking not as asked: {ph.out['chunk_check']}")
     if err >= 1e-3 or chunked.shape != one.shape:
         raise AssertionError(f"chunked render differs from one pass: {ph.out['chunk_check']}")
-    return runs
+    return runs, warm_ir
 
 
 def _k_stats(k):
@@ -1891,6 +1940,164 @@ def _phase_datagen(ph, dev):
         raise AssertionError(f"the room1.dxf batch is not finite and non-silent: {ph.out['room1_dxf']}")
     return runs
 
+def _world_of_one(tmp, axis):
+    """make_mesh() on this card: a world of one over NCCL, its file:// store
+    in the script's temporary directory (make_mesh's own, made there)."""
+    from rayverb_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    with mock.patch.object(tempfile, "tempdir", tmp):
+        mesh = make_mesh(axis=axis)
+    return mesh, time.perf_counter() - t0
+
+
+def _counted(fn):
+    """fn() with the kernels' counts set to 0 just before it and read just
+    after, device-synchronised; returns (result, record)."""
+    import torch
+
+    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    intersect_cuda.launches = 0
+    intersect_cuda.order_launches = 0
+    biquad_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"wall_s": time.perf_counter() - t0, "launches": intersect_cuda.launches,
+                 "order_launches": intersect_cuda.order_launches,
+                 "biquad_launches": biquad_cuda.launches,
+                 "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _phase_sharded(ph, dev, scene, single_ir, tmp):
+    """render_fused_sharded at world size one over NCCL (make_mesh() on a
+    file:// store in the temporary directory): the north star cold and warm,
+    each against render_fused's warm IR of the same inputs from the
+    north_star phase (``single_ir``; max|d| <= 1e-6 x peak, bit equality
+    printed), every sweep through the order and sweep kernels; the two
+    paths' warm walls in turns (render_fused, sharded, sharded,
+    render_fused); then the
+    vault with RAYVERB_FINALIZE_FILTER=scan, whose finalize launches the
+    biquad kernel once per pass, against render_fused's scan render of the
+    same rays. Tears the process group down."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rayverb_tpu_torch.config.schema import load_config, parse_config
+    from rayverb_tpu_torch.ops.filters import _band_coeffs
+    from rayverb_tpu_torch.ops.render import render_fused
+    from rayverb_tpu_torch.ops.trace import sweep_count
+    from rayverb_tpu_torch.parallel import render_fused_sharded
+    from rayverb_tpu_torch.scene import load_scene
+    from rayverb_tpu_torch.utils.directions import random_directions
+
+    mesh, mesh_s = _world_of_one(tmp, "rays")
+    try:
+        ph.out.update(mesh=str(mesh), make_mesh_s=mesh_s, backend=dist.get_backend(),
+                      world_size=dist.get_world_size(),
+                      store_in_tmp=any(n.startswith("rayverb_pg_") for n in os.listdir(tmp)))
+        cfg = parse_config(json.dumps(NORTH_STAR))
+        dirs = random_directions(cfg.rays, seed=0)
+        expected = sweep_count(cfg.reflections)
+        peak = float(np.abs(single_ir).max())
+        runs = []
+        with mock.patch.dict(os.environ, RAYVERB_SWEEP_STATS="1"):
+            for label in ("cold", "warm"):
+                (ir, info), run = _counted(lambda: render_fused_sharded(
+                    scene, cfg, dirs, mesh=mesh, device=dev, stats=True))
+                diff = float(np.abs(ir - single_ir).max()) if ir.shape == single_ir.shape \
+                    else float("inf")
+                run.update(run=label, shape=list(ir.shape),
+                           bit_identical_to_render_fused=bool(np.array_equal(ir, single_ir)),
+                           max_abs_diff_over_peak=diff / peak, info=info)
+                runs.append(run)
+                _emit({"sharded_run": run})
+                if not diff <= 1e-6 * peak:
+                    raise AssertionError(f"the sharded north star differs from render_fused: {run}")
+                if (run["launches"] != expected * sum(info["segments"])
+                        or run["order_launches"] != run["launches"]
+                        or info["sweeps"] != run["launches"] or run["biquad_launches"] != 0):
+                    raise AssertionError(f"the sharded north star did not run every sweep "
+                                         f"through the order and sweep kernels: {run}")
+        # warm walls in turns, one pass each: render_fused, sharded, sharded,
+        # render_fused
+        turns = []
+        for path in ("render_fused", "sharded", "sharded", "render_fused"):
+            _, rec = _counted(
+                (lambda: render_fused(scene, cfg, dirs, device=dev)) if path == "render_fused"
+                else (lambda: render_fused_sharded(scene, cfg, dirs, mesh=mesh, device=dev)))
+            turns.append({"path": path, "wall_s": rec["wall_s"]})
+        ph.out["turns"] = turns
+        # the vault through the scan finalize: the biquad kernel on this path
+        vault = load_scene(VAULT[1], VAULT[2])
+        vcfg = load_config(VAULT[0])
+        vdirs = random_directions(vcfg.rays, seed=vcfg.seed)
+        passes = len(_band_coeffs(vcfg.filter, vcfg.sample_rate, vcfg.hipass))
+        with mock.patch.dict(os.environ, RAYVERB_FINALIZE_FILTER="scan"):
+            (vir, vinfo), vrun = _counted(lambda: render_fused_sharded(
+                vault, vcfg, vdirs, mesh=mesh, device=dev, stats=True))
+            want, _ = render_fused(vault, vcfg, vdirs, device=dev)
+        vpeak = float(np.abs(want).max())
+        vdiff = float(np.abs(vir - want).max()) if vir.shape == want.shape else float("inf")
+        vrun.update(run="vault_scan", shape=list(vir.shape), filter_passes=passes,
+                    bit_identical_to_render_fused=bool(np.array_equal(vir, want)),
+                    max_abs_diff_over_peak=vdiff / vpeak, info=vinfo)
+        runs.append(vrun)
+        if (vinfo["filter_method"] != "scan" or vrun["biquad_launches"] != passes
+                or vrun["launches"] != sweep_count(vcfg.reflections) * sum(vinfo["segments"])
+                or not vdiff <= 1e-6 * vpeak):
+            raise AssertionError(f"the sharded vault's scan finalize is wrong: {vrun}")
+        ph.out.update(card=_nvidia_smi(), rays=cfg.rays, reflections=cfg.reflections,
+                      expected_sweeps=expected, runs=runs)
+        return runs
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.synchronize()
+
+
+def _phase_datagen_mesh(ph, dev, tmp):
+    """Config 5 through render_irs_batched(mesh=make_mesh(axis="batch")) at
+    world size one over NCCL, against the no-mesh batch of the same inputs:
+    bit for bit (the same computation at one rank); its wall and pairs/s,
+    every sweep through the kernels. Tears the process group down."""
+    import torch
+    import torch.distributed as dist
+
+    from rayverb_tpu_torch.config.schema import parse_config
+    from rayverb_tpu_torch.ops.trace import sweep_count
+    from rayverb_tpu_torch.parallel import render_irs_batched
+    from rayverb_tpu_torch.scene import load_scene
+
+    mesh, mesh_s = _world_of_one(tmp, "batch")
+    try:
+        scene = load_scene(VAULT[1], VAULT[2])
+        cfg = parse_config(json.dumps(DATAGEN))
+        sources, mics, dirs = _datagen_inputs(scene, DATAGEN_PAIRS, cfg.rays)
+        want, want_contents = render_irs_batched(scene, cfg, sources, mics, dirs, device=dev)
+        runs = []
+        for label in ("cold", "warm"):
+            (irs, contents, info), run = _counted(lambda: render_irs_batched(
+                scene, cfg, sources, mics, dirs, device=dev, mesh=mesh, stats=True))
+            run.update(run=label, pairs_per_s=DATAGEN_PAIRS / run["wall_s"],
+                       shape=list(irs.shape),
+                       bit_identical_to_no_mesh=bool(torch.equal(irs, want)
+                                                     and torch.equal(contents, want_contents)),
+                       info=info)
+            runs.append(run)
+            if (not run["bit_identical_to_no_mesh"]
+                    or run["launches"] != sweep_count(cfg.reflections) * info["passes"]
+                    or run["order_launches"] != run["launches"]):
+                raise AssertionError(f"the mesh datagen differs from the no-mesh batch: {run}")
+        ph.out.update(mesh=str(mesh), make_mesh_s=mesh_s, pairs=DATAGEN_PAIRS, runs=runs)
+        return runs[-1]
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.synchronize()
+
 
 def main() -> int:
     threading.Thread(target=_watchdog, daemon=True).start()
@@ -1951,10 +2158,10 @@ def main() -> int:
             _phase_hrtf_small_vs_cpu(ph, dev)
         with Phase("hall_kernel_vs_plain") as ph:
             hall_scene = _hall(ph, tmp)
-            hall_load_s = ph.out["load_s"]
+            hall_loads = dict(ph.out)
             hall = _phase_hall(ph, dev, hall_scene)
         with Phase("north_star") as ph:
-            north = _phase_north_star(ph, dev, hall_scene, hall_load_s)
+            north, north_ir = _phase_north_star(ph, dev, hall_scene, hall_loads)
             north_order = ph.out
         with Phase("order_vs_plain") as ph:
             order_rec = _phase_order(ph, dev, hall_scene)
@@ -1971,6 +2178,11 @@ def main() -> int:
             datagen_runs = _phase_datagen(ph, dev)
             datagen_scan = ph.out["scan_finalize"]
             datagen_scan_passes = ph.out["scan_passes_vs_plain"]
+        with Phase("sharded") as ph:
+            sharded_runs = _phase_sharded(ph, dev, hall_scene, north_ir, tmp)
+        del north_ir
+        with Phase("datagen_mesh") as ph:
+            datagen_mesh_run = _phase_datagen_mesh(ph, dev, tmp)
     except Exception:
         traceback.print_exc()
         return 1
@@ -1984,7 +2196,9 @@ def main() -> int:
     # launches of each path, counted from 0 just before its warm run (the
     # north star's: its warm render); "launches" is the binaural vault's
     paths = {"main_path": runs[-1], "hrtf_main_path": hrtf_runs[-1], "north_star": north[-1],
-             "modular_main_path": modular_runs[-1], "datagen": datagen_runs[-1]}
+             "modular_main_path": modular_runs[-1], "datagen": datagen_runs[-1],
+             "sharded": sharded_runs[1], "sharded_vault_scan": sharded_runs[2],
+             "datagen_mesh": datagen_mesh_run}
     _emit({"kernels": [{
         "name": "closest_hit",
         "route": "cuda",

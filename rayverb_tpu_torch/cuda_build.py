@@ -1,11 +1,12 @@
-"""Build the port's CUDA sources with nvcc into C-interface shared
-libraries, loaded with ctypes.
+"""Build the port's native sources into C-interface shared libraries,
+loaded with ctypes: the CUDA kernels with nvcc, the OBJ parser with g++.
 
-Each library is built from the ``.cu`` files under ``csrc/`` at first use,
-into ``_build/`` beside this file (listed in .gitignore), and keyed by the
-SHA-256 of its sources and flags, so a changed source builds anew and an
-unchanged one is reused. No PyTorch headers are compiled: the sources expose
-``extern "C"`` functions that take raw device pointers and a stream.
+Each library is built from its sources at first use (the ``.cu`` files
+under ``csrc/``; ``native/objparse.cpp``), into ``_build/`` beside this
+file (listed in .gitignore), and keyed by the SHA-256 of its sources and
+compile command, so a changed source builds anew and an unchanged one is
+reused. No PyTorch headers are compiled: the sources expose ``extern "C"``
+functions (the kernels' take raw device pointers and a stream).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_TIMEOUT_S = 180
+GXX_TIMEOUT_S = 120
 
 # Hopper only; no FMA contraction and IEEE division, so kernels reproduce
 # their plain PyTorch versions bit for bit.
@@ -35,6 +37,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
     "-shared",
 )
+
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 # one lock per library, so that libraries build in parallel threads (one
 # nvcc each) while a second caller of the same library waits for its build
@@ -60,48 +64,55 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _key(sources) -> str:
+def _key(sources, command) -> str:
     h = hashlib.sha256()
     for s in sources:
         with open(s, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(command).encode())
     return h.hexdigest()[:16]
 
 
 def load_library(name: str, sources) -> ctypes.CDLL:
-    """Build (if needed) and load ``_build/<name>-<hash>.so`` from the given
-    ``.cu`` file names under csrc/. Raises RuntimeError when nvcc fails or
-    runs past NVCC_TIMEOUT_S. Libraries of other names may build at the
-    same time, each in its own thread."""
+    """Build (if needed) with nvcc and load ``_build/<name>-<hash>.so`` from
+    the given ``.cu`` file names under csrc/. Raises RuntimeError when nvcc
+    fails or runs past NVCC_TIMEOUT_S. Libraries of other names may build
+    at the same time, each in its own thread."""
+    return _load(name, [os.path.join(CSRC, s) for s in sources],
+                 [nvcc_path(), *NVCC_FLAGS], NVCC_TIMEOUT_S)
+
+
+def load_host_library(name: str, paths) -> ctypes.CDLL:
+    """As load_library, for C++ host sources (full paths) built with g++
+    under GXX_TIMEOUT_S."""
+    return _load(name, list(paths), ["g++", *GXX_FLAGS], GXX_TIMEOUT_S)
+
+
+def _load(name: str, paths, command, timeout: int) -> ctypes.CDLL:
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         if name in _libs:
             return _libs[name]
-        paths = [os.path.join(CSRC, s) for s in sources]
-        out = os.path.join(BUILD_DIR, f"{name}-{_key(paths)}.so")
+        out = os.path.join(BUILD_DIR, f"{name}-{_key(paths, command[1:])}.so")
         t0 = time.perf_counter()
         log = ""
         if not os.path.isfile(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *paths]
+            cmd = [*command, "-o", tmp, *paths]
             try:
                 proc = subprocess.run(
-                    cmd, capture_output=True, text=True,
-                    timeout=NVCC_TIMEOUT_S,
+                    cmd, capture_output=True, text=True, timeout=timeout,
                 )
-            except subprocess.TimeoutExpired as e:
+            except (OSError, subprocess.TimeoutExpired) as e:
                 os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc ran past {NVCC_TIMEOUT_S} s building {name}"
-                ) from e
+                raise RuntimeError(f"{command[0]} failed building {name}: {e}") from e
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed building {name}:\n{log}")
+                raise RuntimeError(f"{command[0]} failed building {name}:\n{log}")
             os.replace(tmp, out)  # atomic: no half-written library is seen
         lib = ctypes.CDLL(out)
         build_info[name] = {

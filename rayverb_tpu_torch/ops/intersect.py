@@ -199,20 +199,27 @@ def scene_fields(v0, e0, e1, surface, specular, diffuse) -> dict:
     )
 
 
-def soup_from_scene(scene, device=None) -> TriangleSoup:
-    """Build a TriangleSoup on ``device`` (None: the card) from a compiled
-    host Scene."""
+def soup_from_arrays(v0, e0, e1, surface, specular, diffuse,
+                     device=None) -> TriangleSoup:
+    """Build a TriangleSoup (the sweep table included) on ``device`` (None:
+    the card) from host triangle arrays (rayverb_tpu/ops/intersect.py:192)."""
     from ..params import soup_from_numpy
 
     return soup_from_numpy(
-        **scene_fields(
-            scene.v0,
-            scene.e0,
-            scene.e1,
-            scene.tri_surface,
-            scene.specular,
-            scene.diffuse,
-        ),
+        **scene_fields(v0, e0, e1, surface, specular, diffuse), device=device
+    )
+
+
+def soup_from_scene(scene, device=None) -> TriangleSoup:
+    """Build a TriangleSoup on ``device`` (None: the card) from a compiled
+    host Scene."""
+    return soup_from_arrays(
+        scene.v0,
+        scene.e0,
+        scene.e1,
+        scene.tri_surface,
+        scene.specular,
+        scene.diffuse,
         device=device,
     )
 

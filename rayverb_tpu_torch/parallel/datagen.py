@@ -304,10 +304,11 @@ def render_irs_batched(
     microbatch: int | None = None,
     bin_mode: str | None = None,
     stats: bool = False,
+    mesh=None,
+    batch_axis: str = "batch",
 ):
     """Render B impulse responses through shared sweeps on ``device``
-    (None: the card); the counterpart of datagen.py:414-537 without its
-    ``mesh`` (sharding over ranks is a later port).
+    (None: the card); the counterpart of datagen.py:414-537.
 
     sources, mics: (B, 3); directions: (B, N, 3), one ray set per pair
     (broadcast one set with np.broadcast_to). The config's source and mic
@@ -323,7 +324,26 @@ def render_irs_batched(
     impl: the closest-hit implementation ('auto' | 'cuda' | 'plain').
     microbatch: whole pairs per pass, None to plan from the shapes
     (datagen_bytes against render.memory_budget). bin_mode: 'sorted' or
-    'scatter', None to read RAYVERB_BIN."""
+    'scatter', None to read RAYVERB_BIN.
+
+    mesh: a ``torch.distributed`` DeviceMesh with a ``batch_axis`` axis
+    (parallel.make_mesh(axis="batch")); every rank of the world calls this
+    function with the same arguments. B must divide by the axis size
+    (ValueError otherwise, datagen.py:523-527). Each rank renders its B / d
+    whole pairs with this function's single-device body, then the ranks
+    all-gather the IRs and contents (the only collective: pairs are
+    independent), so every rank returns the full (B, C, L) and (B,), as
+    the JAX out_specs=P(batch) present one global array. With stats, the
+    info is the rank's own (its passes, phases, issued and executed pairs)
+    but for ``pairs``, ``pairs_per_s`` and ``ray_bounces_per_s``, which
+    count the whole batch over the rank's wall, the gather included, and
+    the added ``mesh`` and ``pairs_per_rank``. A rank outside the mesh
+    returns None values."""
+    if mesh is not None:
+        return _render_irs_on_mesh(
+            scene, config, sources, mics, directions, mesh=mesh, batch_axis=batch_axis,
+            hrtf_table=hrtf_table, impl=impl, device=device, microbatch=microbatch,
+            bin_mode=bin_mode, stats=stats)
     dev = resolve_device(device)
     t_start = time.perf_counter()
     if bin_mode is None:
@@ -419,6 +439,44 @@ def render_irs_batched(
         executed = dict(zip(SWEEP_KINDS, pair_stats.tolist()))
         info["pair_tests_executed"] = executed
         info["pair_tests_executed_total"] = sum(executed.values())
+    return irs, contents, info
+
+
+def _render_irs_on_mesh(scene, config, sources, mics, directions, *, mesh, batch_axis,
+                        stats, **kw):
+    """render_irs_batched over the ranks of ``mesh`` (its docstring)."""
+    from .sharded import _all_gather, _axis_size
+
+    t_start = time.perf_counter()
+    d = _axis_size(mesh, batch_axis)
+    if mesh.ndim != 1:
+        raise ValueError("render_irs_batched needs a 1-D mesh")
+    b = len(directions)
+    if b % d:
+        raise ValueError(f"batch {b} must divide across the '{batch_axis}' axis "
+                         f"({d} devices)")
+    if mesh.get_coordinate() is None:
+        return (None, None, None) if stats else (None, None)
+    rank = mesh.get_local_rank(batch_axis)
+    group = mesh.get_group(batch_axis)
+    mine = slice(rank * (b // d), (rank + 1) * (b // d))
+    out = render_irs_batched(scene, config, np.asarray(sources)[mine], np.asarray(mics)[mine],
+                             np.asarray(directions)[mine], stats=stats, **kw)
+    irs = _all_gather(out[0], group, d)
+    contents = _all_gather(out[1], group, d)
+    if not stats:
+        return irs, contents
+    info = out[2]
+    total = time.perf_counter() - t_start
+    n = info["rays_per_pair"]
+    info.update({
+        "mesh": {batch_axis: d},
+        "pairs": b,
+        "pairs_per_rank": b // d,
+        "pairs_per_s": b / max(total, 1e-9),
+        "ray_bounces_per_s": b * n * config.reflections / max(total, 1e-9),
+    })
+    info["timings"]["total"] = total
     return irs, contents, info
 
 

@@ -8,9 +8,11 @@ when its face was declared. Polygon faces are fan-triangulated, matching
 Assimp's aiProcess_Triangulate behaviour on the convex faces found in the
 demo corpus.
 
-The JAX package's native C++ OBJ parser (rayverb_tpu/native/objparse.cpp)
-is not ported: this reader is pure Python. ``load_mesh`` dispatches on the
-extension to the port's DXF, STL, PLY, glTF/GLB and OFF readers.
+``load_obj`` prefers the port's native C++ parser (native/objparse.cpp,
+the port's copy of the JAX package's), which this module's pure-Python
+reader specifies; RAYVERB_NO_NATIVE=1 takes the Python reader.
+``load_mesh`` dispatches on the extension to the port's DXF, STL, PLY,
+glTF/GLB and OFF readers.
 """
 
 from __future__ import annotations
@@ -96,7 +98,15 @@ def load_obj_python(path: str) -> RawMesh:
 
 
 def load_obj(path: str) -> RawMesh:
-    """Parse an OBJ file with the pure-Python reader."""
+    """Parse an OBJ file, preferring the native C++ parser
+    (rayverb_tpu/scene/objloader.py:99-106); the pure-Python reader when
+    RAYVERB_NO_NATIVE is set or the parser cannot be built."""
+    if not os.environ.get("RAYVERB_NO_NATIVE"):
+        from ..native import load_obj_native
+
+        mesh = load_obj_native(path)
+        if mesh is not None:
+            return mesh
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     return load_obj_python(path)

@@ -1,5 +1,5 @@
 """Ray-direction generation (numpy), a copy of rayverb_tpu/utils/directions.py
-(:26-79) without its JAX variant.
+(:26-79) without its JAX variant, and ``sphere_point`` on tensors.
 
 The reference draws uniform sphere points via the z/theta parameterisation
 with a wall-clock-seeded std RNG (reference rayverb/helpers.cpp:62-81). Here
@@ -10,6 +10,7 @@ seed gives the same directions, bit for bit, as the JAX package.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _morton3(q: np.ndarray) -> np.ndarray:
@@ -27,6 +28,16 @@ def _morton3(q: np.ndarray) -> np.ndarray:
     return spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) | (
         spread(q[:, 2]) << np.uint64(2)
     )
+
+
+def sphere_point(z, theta):
+    """Point on the unit sphere from z in [-1,1], theta in [-pi,pi]
+    (helpers.cpp:62-67; rayverb_tpu/utils/directions.py:19), on tensors:
+    (..., 3) from (...) each."""
+    z = torch.as_tensor(z)
+    theta = torch.as_tensor(theta)
+    zt = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    return torch.stack([zt * torch.cos(theta), zt * torch.sin(theta), z], dim=-1)
 
 
 def random_directions(num: int, seed: int | None = None) -> np.ndarray:

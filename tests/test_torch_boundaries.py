@@ -16,9 +16,16 @@ PORT = REPO / "rayverb_tpu_torch"
 
 
 def _port_sources():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_sharded_worker.py"]
     assert len(files) > 15
     return files
+
+
+def test_scan_covers_the_multi_rank_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    assert {"rayverb_tpu_torch/parallel/sharded.py", "rayverb_tpu_torch/native/__init__.py",
+            "tests/torch_sharded_worker.py"} <= names
 
 
 def _imported_modules(path):
@@ -57,6 +64,9 @@ def test_port_imports_in_a_fresh_interpreter_without_jax():
         "import sys\n"
         "import rayverb_tpu_torch, rayverb_tpu_torch.cli, rayverb_tpu_torch.params\n"
         "import rayverb_tpu_torch.ops.render, rayverb_tpu_torch.ops.intersect_cuda\n"
+        "import rayverb_tpu_torch.parallel.sharded, rayverb_tpu_torch.native\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_sharded_worker\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rayverb_tpu', 'triton')]\n"
         "assert not bad, bad\n"
     )
