@@ -116,7 +116,19 @@ Phases, each printed as one JSON line with its wall time:
  16. datagen_mesh  config 5 through render_irs_batched(mesh=make_mesh(
               axis="batch")), cold and warm, bit for bit against the no-mesh
               batch, with walls and pairs/s
- 17. kernels  one JSON line per the port's kernel table (the sweep, the
+ 17. corpus   the demo corpus's covering subset (rayverb_tpu_torch.gen's
+              covering(): each combination, in COMBOS order, that brings a
+              config, model or material not yet covered; 29 renders cover
+              the 14 configs, 16 models and 5 materials) at full size
+              through gen.render on cuda, every sweep through the order and
+              sweep kernels, each render held against its file in impulses/
+              (the JAX package's corpus) by corpus_check (format,
+              emptiness, length, decay, balance, spectrum): walls, channels,
+              samples, every reading and each bound's worst
+ 18. parity   kernel_parity: the sweep kernel against the float64
+              Moller-Trumbore oracle on the card, 2,048 rows of mixed kinds
+              on the vault and on the hall, scripts/kernel_parity.py's gates
+ 19. kernels  one JSON line per the port's kernel table (the sweep, the
               block order, the unpack kernel with the card's launch floor,
               and the biquad scan); the device line also carries the
               instruction counts of the sweep kernel's loops, read from
@@ -148,21 +160,6 @@ VAULT = (
     os.path.join(REPO, "assets", "materials", "vault.json"),
 )
 HRTF_VAULT = (os.path.join(REPO, "assets", "configs", "hrtf_vault.json"), *VAULT[1:])
-# the north star (bench.py:90-119): 1M rays x 16 reflections through the
-# 100k-triangle hall of scripts/gen_hall.py, stereo HRTF
-NORTH_STAR = {
-    "rays": 1_000_000,
-    "reflections": 16,
-    "sample_rate": 44100,
-    "bit_depth": 16,
-    "source_position": [12.0, 6.0, 8.0],
-    "mic_position": [28.0, 5.0, 20.0],
-    "attenuation_model": {"hrtf": {"facing": [0, 0, 1], "up": [0, 1, 0]}},
-    "filter": "linkwitz_riley",
-    "normalize": True,
-    "trim_tail": False,
-}
-HALL_TRIANGLES = 100_000
 # the north star's one-pass against chunked check: rays and rays per chunk
 CHUNK_CHECK = (65_536, 16_384)
 # H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
@@ -207,14 +204,6 @@ class Phase:
             line["error"] = f"{exc_type.__name__}: {exc}"
         _emit(line)
         return False
-
-
-def _nvidia_smi():
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=30, check=True,
-    )
-    return proc.stdout.strip().splitlines()[0]
 
 
 def _sass_loops(lib_path):
@@ -854,22 +843,17 @@ def _phase_hrtf_small_vs_cpu(ph, dev):
 
 def _hall(ph, tmp):
     """The north-star hall, generated into ``tmp`` by scripts/gen_hall.py
-    (imported by path; it imports neither package) and loaded with
-    mat.json; its sizes and walls go into the phase's line."""
-    import importlib.util
-
+    (probe.write_hall) and loaded with mat.json; its sizes and walls go
+    into the phase's line."""
+    from rayverb_tpu_torch.probe import HALL_MATERIALS, write_hall
     from rayverb_tpu_torch.scene import load_scene
 
-    spec = importlib.util.spec_from_file_location(
-        "gen_hall", os.path.join(REPO, "scripts", "gen_hall.py"))
-    gen_hall = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gen_hall)
     path = os.path.join(tmp, "hall.obj")
     t0 = time.perf_counter()
-    ph.out["triangles"] = gen_hall.generate(path, HALL_TRIANGLES)
+    ph.out["triangles"] = write_hall(path)
     ph.out["generate_s"] = time.perf_counter() - t0
     ph.out.update(_hall_loads(path))
-    return load_scene(path, os.path.join(REPO, "assets", "materials", "mat.json"))
+    return load_scene(path, HALL_MATERIALS)
 
 
 def _hall_loads(path):
@@ -910,6 +894,7 @@ def _phase_hall(ph, dev, scene):
     import torch
 
     from rayverb_tpu_torch.ops.intersect import soup_from_scene
+    from rayverb_tpu_torch.probe import NORTH_STAR
     from rayverb_tpu_torch.utils.directions import morton_sort, random_directions
 
     soup = soup_from_scene(scene, device=dev)
@@ -934,10 +919,12 @@ def _phase_north_star(ph, dev, scene, hall_loads):
     import torch
 
     from rayverb_tpu_torch.config.schema import parse_config
+    from rayverb_tpu_torch.device import card_name_and_power
     from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
     from rayverb_tpu_torch.ops.intersect import block_order, soup_from_scene
     from rayverb_tpu_torch.ops.order_check import order_keys
     from rayverb_tpu_torch.ops.render import render_fused
+    from rayverb_tpu_torch.probe import NORTH_STAR
     from rayverb_tpu_torch.utils.directions import morton_sort, random_directions
 
     cfg = parse_config(json.dumps(NORTH_STAR))
@@ -1009,7 +996,7 @@ def _phase_north_star(ph, dev, scene, hall_loads):
                                        ray_chunk=CHUNK_CHECK[1])
     err = _ir_error(chunked, one)
     ph.out.update({
-        "card": _nvidia_smi(), "hall_loads": hall_loads,
+        "card": card_name_and_power(), "hall_loads": hall_loads,
         "hall_triangles": scene.num_triangles,
         "table_blocks": nb, "rays": cfg.rays,
         "reflections": cfg.reflections, "runs": runs,
@@ -1045,6 +1032,7 @@ def _north_star_k(dev, scene):
     from rayverb_tpu_torch.ops import intersect
     from rayverb_tpu_torch.ops.order_check import order_k, order_keys
     from rayverb_tpu_torch.ops.render import render_fused
+    from rayverb_tpu_torch.probe import NORTH_STAR
     from rayverb_tpu_torch.utils.directions import random_directions
 
     cfg = parse_config(json.dumps(NORTH_STAR))
@@ -1988,10 +1976,12 @@ def _phase_sharded(ph, dev, scene, single_ir, tmp):
     import torch.distributed as dist
 
     from rayverb_tpu_torch.config.schema import load_config, parse_config
+    from rayverb_tpu_torch.device import card_name_and_power
     from rayverb_tpu_torch.ops.filters import _band_coeffs
     from rayverb_tpu_torch.ops.render import render_fused
     from rayverb_tpu_torch.ops.trace import sweep_count
     from rayverb_tpu_torch.parallel import render_fused_sharded
+    from rayverb_tpu_torch.probe import NORTH_STAR
     from rayverb_tpu_torch.scene import load_scene
     from rayverb_tpu_torch.utils.directions import random_directions
 
@@ -2051,7 +2041,7 @@ def _phase_sharded(ph, dev, scene, single_ir, tmp):
                 or vrun["launches"] != sweep_count(vcfg.reflections) * sum(vinfo["segments"])
                 or not vdiff <= 1e-6 * vpeak):
             raise AssertionError(f"the sharded vault's scan finalize is wrong: {vrun}")
-        ph.out.update(card=_nvidia_smi(), rays=cfg.rays, reflections=cfg.reflections,
+        ph.out.update(card=card_name_and_power(), rays=cfg.rays, reflections=cfg.reflections,
                       expected_sweeps=expected, runs=runs)
         return runs
     finally:
@@ -2099,6 +2089,54 @@ def _phase_datagen_mesh(ph, dev, tmp):
         torch.cuda.synchronize()
 
 
+def _phase_corpus(ph, tmp):
+    """The demo corpus's covering subset (gen.covering(): in COMBOS order,
+    each combination that brings a config, model or material not yet
+    covered; every one of the 14, 16 and 5 at least once) at full size
+    through gen.render on cuda, the kernels' counts set to 0 just before
+    and read just after; each render held against its file in impulses/
+    (the JAX package's corpus) by corpus_check. Every render's wall,
+    channels, samples and readings, and each bound's worst reading."""
+    from rayverb_tpu_torch import gen
+    from rayverb_tpu_torch.config.schema import load_config
+    from rayverb_tpu_torch.ops.trace import sweep_count
+
+    todo = gen.covering()
+    expected = sum(sweep_count(load_config(gen.combo_paths(c)[0]).reflections)
+                   for _, c in todo)
+    report, run = _counted(lambda: gen.render(
+        todo, os.path.join(tmp, "corpus"), device="cuda",
+        check_against=os.path.join(REPO, "impulses"), log=lambda _: None))
+    ph.out.update(counted=run, renders=[
+        {k: r.get(k) for k in ("combo", "index", "seed", "run", "wall_s", "rc",
+                               "channels", "samples")}
+        | {"check": {n: c and c["value"] for n, c in r["check"]["checks"].items()}
+           if "check" in r else None}
+        for r in report["renders"]],
+        expected_sweeps=expected, worst=report.get("check_worst"),
+        walls_by_model=report["walls_by_model"],
+        failed=report["failed_combos"], check_failed=report.get("check_failed_combos"))
+    if report["failures"] or report.get("check_failed_combos") or len(todo) != report["total"]:
+        raise AssertionError(f"corpus renders failed or missed a bound: {ph.out['failed']} "
+                             f"{ph.out['check_failed']}")
+    if run["launches"] < expected or run["order_launches"] != run["launches"]:
+        raise AssertionError(f"the corpus's sweeps did not all go through the kernels: {run}")
+    return run
+
+
+def _phase_kernel_parity(ph, dev, hall_scene):
+    """kernel_parity: the sweep kernel against the float64 oracle on the
+    card, 2,048 rows of mixed kinds on the vault (seed 3) and on the hall
+    (seed 4), with scripts/kernel_parity.py's gates."""
+    from rayverb_tpu_torch import kernel_parity
+
+    recs = [kernel_parity.check_scene("vault", kernel_parity.vault_scene(), 2048, 3, dev),
+            kernel_parity.check_scene("hall100k", hall_scene, 2048, 4, dev)]
+    ph.out["scenes"] = recs
+    if not all(r["ok"] and r["kernel_launches"] > 0 for r in recs):
+        raise AssertionError(f"the sweep kernel failed a float64 gate: {recs}")
+
+
 def main() -> int:
     threading.Thread(target=_watchdog, daemon=True).start()
     import torch
@@ -2119,7 +2157,9 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="rayverb_chip_smoke_")
     try:
         with Phase("device") as ph:
-            smi = _nvidia_smi()
+            from rayverb_tpu_torch.device import card_name_and_power
+
+            smi = card_name_and_power()
             ph.out["nvidia_smi"] = smi
             ph.out["torch_device"] = torch.cuda.get_device_name(0)
             ph.out["torch"] = torch.__version__
@@ -2183,6 +2223,10 @@ def main() -> int:
         del north_ir
         with Phase("datagen_mesh") as ph:
             datagen_mesh_run = _phase_datagen_mesh(ph, dev, tmp)
+        with Phase("corpus") as ph:
+            corpus_run = _phase_corpus(ph, tmp)
+        with Phase("kernel_parity") as ph:
+            _phase_kernel_parity(ph, dev, hall_scene)
     except Exception:
         traceback.print_exc()
         return 1
@@ -2198,7 +2242,7 @@ def main() -> int:
     paths = {"main_path": runs[-1], "hrtf_main_path": hrtf_runs[-1], "north_star": north[-1],
              "modular_main_path": modular_runs[-1], "datagen": datagen_runs[-1],
              "sharded": sharded_runs[1], "sharded_vault_scan": sharded_runs[2],
-             "datagen_mesh": datagen_mesh_run}
+             "datagen_mesh": datagen_mesh_run, "corpus": corpus_run}
     _emit({"kernels": [{
         "name": "closest_hit",
         "route": "cuda",

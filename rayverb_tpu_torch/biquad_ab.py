@@ -60,13 +60,14 @@ def run(parent):
     import numpy as np
     import torch
 
+    from .device import card_name_and_power
     from .ops import biquad_cuda
     from .ops.filters import biquad_onepass_plain
 
     if not torch.cuda.is_available():
         raise RuntimeError("biquad_ab needs a CUDA device")
     smoke = _smoke()
-    _emit({"card": smoke._nvidia_smi(), "torch_device": torch.cuda.get_device_name(0)})
+    _emit({"card": card_name_and_power(), "torch_device": torch.cuda.get_device_name(0)})
     wrap = {"parent": _parent_wrapper(parent, "biquad_scan.cu", "biquad_cuda",
                                       "biquad_scan_cuda", "biquad_ab_parent.so"),
             "change": biquad_cuda.biquad_scan_cuda}

@@ -74,8 +74,7 @@ def _parent_wrapper(parent, cu="closest_hit.cu", wrapper="intersect_cuda",
 
 def _smoke():
     """chip_smoke.py at the checkout's root, for its timing helpers
-    (_profiled_ms, _cuda_ms) and nvidia-smi query; importing it runs
-    nothing."""
+    (_profiled_ms, _cuda_ms); importing it runs nothing."""
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -102,6 +101,7 @@ def run(parent, second=None):
     from . import profile_render
     from . import scene as scene_mod
     from .config.schema import load_config
+    from .device import card_name_and_power
     from .ops import intersect_cuda
     from .ops.intersect import block_order, soup_from_scene
     from .ops.order_check import order_k, order_keys
@@ -109,7 +109,7 @@ def run(parent, second=None):
     if not torch.cuda.is_available():
         raise RuntimeError("order_ab needs a CUDA device")
     smoke = _smoke()
-    _emit({"card": smoke._nvidia_smi(), "torch_device": torch.cuda.get_device_name(0)})
+    _emit({"card": card_name_and_power(), "torch_device": torch.cuda.get_device_name(0)})
     wrap = {"parent": _parent_wrapper(parent), "change": intersect_cuda.block_order_cuda}
     cells = {"vault": profile_render.VAULT}
     if second is not None:

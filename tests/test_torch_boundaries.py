@@ -13,6 +13,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "rayverb_tpu_torch"
+# the entry points of the corpus and the correctness tools
+TOOLS = ("gen", "corpus_check", "kernel_parity", "health", "probe", "convolve")
 
 
 def _port_sources():
@@ -26,6 +28,11 @@ def test_scan_covers_the_multi_rank_modules():
     names = {str(p.relative_to(REPO)) for p in _port_sources()}
     assert {"rayverb_tpu_torch/parallel/sharded.py", "rayverb_tpu_torch/native/__init__.py",
             "tests/torch_sharded_worker.py"} <= names
+
+
+def test_scan_covers_the_tools():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    assert {f"rayverb_tpu_torch/{m}.py" for m in TOOLS} <= names
 
 
 def _imported_modules(path):
@@ -65,6 +72,7 @@ def test_port_imports_in_a_fresh_interpreter_without_jax():
         "import rayverb_tpu_torch, rayverb_tpu_torch.cli, rayverb_tpu_torch.params\n"
         "import rayverb_tpu_torch.ops.render, rayverb_tpu_torch.ops.intersect_cuda\n"
         "import rayverb_tpu_torch.parallel.sharded, rayverb_tpu_torch.native\n"
+        + "".join(f"import rayverb_tpu_torch.{m}\n" for m in TOOLS) +
         "sys.path.insert(0, 'tests')\n"
         "import torch_sharded_worker\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rayverb_tpu', 'triton')]\n"

@@ -88,7 +88,7 @@ def test_cli_errors_match_reference(bedroom_args, tmp_path, capsys, case):
     ["--pipeline modular", "--save-raw", "--from-raw", "--dump-paths",
      "--filter-method fft"],
 )
-def test_cli_unported_flags(bedroom_args, tmp_path, capsys, flag):
+def test_cli_modular_flags(bedroom_args, tmp_path, capsys, flag):
     """The modular pipeline's flags, once refused (the name is kept), now
     work on the CPU: exit 0 and a stereo WAV; --save-raw writes a file both
     packages load; --from-raw gives the direct modular render's IR;
@@ -150,7 +150,7 @@ def test_cli_unported_flags(bedroom_args, tmp_path, capsys, flag):
                 assert abs(ge["volume"] - we["volume"]) <= 1e-6
 
 
-def test_cli_hrtf_config_not_ported(bedroom_args, tmp_path, capsys, monkeypatch):
+def test_cli_renders_hrtf_config(bedroom_args, tmp_path, capsys, monkeypatch):
     """HRTF configs render through the CLI (it once refused them; the name
     is kept): exit 0 and a stereo WAV; with --stats and
     RAYVERB_SWEEP_STATS the executed pair tests by kind are printed."""

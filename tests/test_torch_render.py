@@ -222,7 +222,7 @@ def test_sorted_binning_matches_jax(rng):
     np.testing.assert_allclose(gh.numpy(), np.asarray(wh), rtol=2e-6, atol=1e-7)
 
 
-def test_hrtf_config_is_not_ported(scenes):
+def test_hrtf_config_renders(scenes):
     """HRTF configs render (the port once refused them; the name is kept):
     two finite, non-silent ears. Parity with the JAX package is held in
     tests/test_torch_hrtf.py."""
