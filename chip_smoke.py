@@ -17,12 +17,20 @@ Phases, each printed as one JSON line with its wall time:
               rays with bounds and any-hit thresholds, and a 5-triangle
               scene, each at one slice in table order, at the schedule the
               port chooses (sweep_schedule) and at the slice counts of
-              SLICE_SCAN. best_t, best_i and the executed-pair counters
-              must be equal bit for bit; the order table of the order
+              SLICE_SCAN (the ragged batch's chosen schedule is 16
+              slices, which the sweep's epilogue merges by the last
+              arriver). The kernel's Hit (t, index, hit) must equal
+              hit_from_raw of the plain version's results, and the
+              executed-pair counters the plain version's, bit for bit;
+              the order table of the order
               kernel must equal its plain version's, on the card and on the
               CPU, also on tables of 16,384 and 32,768 random blocks;
               closest-hit rows and decided rows' verdicts must not depend
-              on the schedule.
+              on the schedule. On the primary batch, the epilogue's record:
+              one closest_hit call's device operations (torch.profiler:
+              the order kernel and the sweep, plus a fill with stats, and
+              nothing else), the sweep's device ms beside the launch
+              floor, and the Hit without bounds against the Hit with them
   3. main     the port's CLI renders the full vault demo (50,000 rays x 128
               reflections, two speakers, 44.1 kHz, 24-bit) on cuda, cold and
               warm; the WAV must read back as 2 finite, non-silent channels
@@ -46,8 +54,9 @@ Phases, each printed as one JSON line with its wall time:
               and loaded through the native OBJ parser (which must build
               and load) and through the pure-Python reader, each parse and
               scene load with its wall, the two parses bit-equal: 8,192
-              Morton-sorted primary rays, kernel against plain, bit for bit
-              (results, counters, order tables)
+              Morton-sorted primary rays and a decided batch of 300 shadow
+              rows (53 slices), kernel against plain, bit for bit (Hits,
+              counters, order tables)
   8. north    the north star: 1,000,000 rays x 16 reflections through the
               hall (and the hall's load times, beside the card's name),
               stereo HRTF, cold and warm,
@@ -129,8 +138,9 @@ Phases, each printed as one JSON line with its wall time:
               Moller-Trumbore oracle on the card, 2,048 rows of mixed kinds
               on the vault and on the hall, scripts/kernel_parity.py's gates
  19. kernels  one JSON line per the port's kernel table (the sweep, the
-              block order, the unpack kernel with the card's launch floor,
-              and the biquad scan); the device line also carries the
+              block order, the sweep's epilogue with no launch of its own
+              beside the card's launch floor, and the biquad scan); the
+              device line also carries the
               instruction counts of the sweep kernel's loops, read from
               `cuobjdump -sass` where the toolkit has it
 
@@ -166,6 +176,8 @@ CHUNK_CHECK = (65_536, 16_384)
 # cores, HBM3 bandwidth
 FP32_PEAK = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# bytes of one ray's Hit (t float32, index int64, hit bool)
+HIT_BYTES = 13
 # FP32 operations per pair test, as the JAX kernel's cost estimate counts
 # them (rayverb_tpu/ops/intersect_pallas.py:414)
 FLOPS_PER_PAIR = 40
@@ -312,32 +324,42 @@ def _pair_bound_ms(pairs):
     return pairs * FLOPS_PER_PAIR / FP32_PEAK * 1e3
 
 
+def _hit_mismatch(a, b):
+    """Rows where two Hits differ in any bit of t, index or hit."""
+    import torch
+
+    return int(((a.t.view(torch.int32) != b.t.view(torch.int32))
+                | (a.index != b.index) | (a.hit != b.hit)).sum())
+
+
 def _run_schedule(soup, args, order, slices):
-    """Kernel vs plain on one batch and schedule; raises unless results
-    and executed-pair counters are equal bit for bit. Returns the record."""
+    """Kernel vs plain on one batch and schedule: the kernel's Hit against
+    hit_from_raw of closest_hit_plain, and the executed-pair counters;
+    raises unless they are equal bit for bit. Returns (the record, the
+    kernel's Hit)."""
     import torch
 
     from rayverb_tpu_torch.ops import intersect_cuda
-    from rayverb_tpu_torch.ops.intersect import closest_hit_plain
+    from rayverb_tpu_torch.ops.intersect import closest_hit_plain, hit_from_raw
 
     pt, pi, p_ex = closest_hit_plain(*args, order, slices, with_stats=True)
-    kt, ki, k_ex = intersect_cuda.closest_hit_cuda(*args, order, slices, with_stats=True)
+    plain = hit_from_raw(pt, pi)
+    hit, k_ex = intersect_cuda.closest_hit_cuda(*args, order, slices, with_stats=True)
     torch.cuda.synchronize()
+    both = plain.hit & hit.hit
     rec = {
         "slices": slices,
-        "hits": int((ki >= 0).sum()),
-        "mismatch_t": int((pt.view(torch.int32) != kt.view(torch.int32)).sum()),
-        "mismatch_i": int((pi != ki).sum()),
+        "hits": int(hit.hit.sum()),
+        "mismatch_hit": _hit_mismatch(hit, plain),
         "mismatch_executed": int((p_ex != k_ex).sum()),
         "executed_pairs": int(k_ex.sum()),
+        "max_abs_err": float((plain.t - hit.t).abs()[both].max()) if bool(both.any()) else 0.0,
     }
-    both = torch.isfinite(pt) & torch.isfinite(kt)
-    rec["max_abs_err"] = float((pt - kt).abs()[both].max()) if bool(both.any()) else 0.0
     rec["ms"] = _cuda_ms(lambda: intersect_cuda.closest_hit_cuda(*args, order, slices), 20)
     rec["bound_own_ms"] = _pair_bound_ms(rec["executed_pairs"])
-    if rec["mismatch_t"] or rec["mismatch_i"] or rec["mismatch_executed"]:
+    if rec["mismatch_hit"] or rec["mismatch_executed"]:
         raise AssertionError(f"kernel != plain at {slices} slices: {rec}")
-    return rec, (kt, ki)
+    return rec, hit
 
 
 def _compare_batch(name, soup, o, d, tmax, decide):
@@ -375,11 +397,11 @@ def _compare_batch(name, soup, o, d, tmax, decide):
     table, table_out = _run_schedule(soup, args, table_order(m, nb, o.device), 1)
     chosen, chosen_out = _run_schedule(soup, args, order, slices)
     closest = decide == 0
-    for a, b in zip(table_out, chosen_out):
-        if not torch.equal(a[closest].view(torch.int32), b[closest].view(torch.int32)):
-            raise AssertionError(f"batch {name}: closest-hit rows depend on the schedule")
+    rows = lambda hit, mask: type(hit)(*(x[mask] for x in hit))  # noqa: E731
+    if _hit_mismatch(rows(table_out, closest), rows(chosen_out, closest)):
+        raise AssertionError(f"batch {name}: closest-hit rows depend on the schedule")
     # decided rows may return another witness, never another verdict
-    verdict = lambda out: (out[1] < 0) | (out[0] > decide)  # noqa: E731
+    verdict = lambda hit: ~hit.hit | (hit.t > decide)  # noqa: E731
     if not torch.equal(verdict(table_out)[~closest], verdict(chosen_out)[~closest]):
         raise AssertionError(f"batch {name}: decided rows' verdicts depend on the schedule")
     scan = [_run_schedule(soup, args, order, s)[0]
@@ -389,7 +411,7 @@ def _compare_batch(name, soup, o, d, tmax, decide):
     # tests' FP32 operations over the FP32 peak and the bytes the function
     # must move (inputs read once, outputs written once) over HBM bandwidth
     in_bytes = 4 * (8 * m + tp * 16 + soup.block_aabb.numel() + order.numel())
-    out_bytes = 8 * m
+    out_bytes = HIT_BYTES * m
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     # bound_ms counts the executed pairs of one slice in table order, which
     # do not depend on the schedule chosen; bound_own_ms counts the chosen
@@ -410,9 +432,8 @@ def _compare_batch(name, soup, o, d, tmax, decide):
         "batch": name,
         "rows": m,
         "hits": chosen["hits"],
-        "mismatch_t": table["mismatch_t"] + chosen["mismatch_t"],
-        "mismatch_i": table["mismatch_i"] + chosen["mismatch_i"],
-        "mismatch_executed": table["mismatch_executed"] + chosen["mismatch_executed"],
+        "mismatch_hit": sum(r["mismatch_hit"] for r in [table, chosen, *scan]),
+        "mismatch_executed": sum(r["mismatch_executed"] for r in [table, chosen, *scan]),
         "max_abs_err": max(table["max_abs_err"], chosen["max_abs_err"]),
         "schedule": {"order": "near_to_far", "slices": slices,
                      "ctas": -(-m // SWEEP_RAYS) * slices},
@@ -497,7 +518,7 @@ def _phase_kernel(ph, dev):
     o = src.expand(n, 3).contiguous()
     batches = [_compare_batch("primary", soup, o, d, inf, zero)]
     order, slices = sweep_schedule(o, d, inf, soup.block_aabb)
-    batches[0]["unpack"] = _unpack_record(
+    batches[0]["epilogue"] = _epilogue_record(
         soup, (o, d, soup.packed, soup.block_aabb, inf, zero), order, slices, n)
 
     first = closest_hit(o, d, soup, impl="plain")
@@ -545,9 +566,7 @@ def _phase_kernel(ph, dev):
             raise AssertionError(f"batch {b['batch']} has no hits: {b}")
     ph.out["batches"] = batches
     ph.out["rows_compared"] = sum(b["rows"] for b in batches)
-    ph.out["mismatches"] = sum(
-        b["mismatch_t"] + b["mismatch_i"] + b["mismatch_executed"] for b in batches
-    )
+    ph.out["mismatches"] = sum(b["mismatch_hit"] + b["mismatch_executed"] for b in batches)
     return batches
 
 
@@ -888,12 +907,20 @@ def _hall_loads(path):
     return out
 
 
+# rows of the hall's decided batch (shadow rows: half to the mic, half to
+# points beyond the walls): few enough groups that sweep_slices gives it
+# more slices (53) than any closest-hit batch takes (CLOSEST_SLICES, 8)
+HALL_DECIDED_ROWS = 300
+
+
 def _phase_hall(ph, dev, scene):
     """8,192 Morton-sorted primary rays against the hall's 1,024-block table,
-    kernel against plain, bit for bit (as in kernel_vs_plain)."""
+    and a decided batch of HALL_DECIDED_ROWS shadow rows from points in the
+    hall, kernel against plain, bit for bit (as in kernel_vs_plain)."""
+    import numpy as np
     import torch
 
-    from rayverb_tpu_torch.ops.intersect import soup_from_scene
+    from rayverb_tpu_torch.ops.intersect import CLOSEST_SLICES, soup_from_scene
     from rayverb_tpu_torch.probe import NORTH_STAR
     from rayverb_tpu_torch.utils.directions import morton_sort, random_directions
 
@@ -904,9 +931,30 @@ def _phase_hall(ph, dev, scene):
     rec = _compare_batch("hall_primary", soup, o, d,
                          torch.full((m,), float("inf"), device=dev),
                          torch.zeros((m,), device=dev))
-    ph.out.update({"table_blocks": int(soup.block_aabb.shape[0]), "batch": rec})
+    rng = np.random.default_rng(11)
+    lo, hi = scene.bounds
+    n = HALL_DECIDED_ROWS
+    points = (lo + (hi - lo) * rng.uniform(0.05, 0.95, (n, 3))).astype(np.float32)
+    # odd rows to the mic; even rows to points beyond the walls, which every
+    # one of them hits
+    away = rng.standard_normal((n, 3))
+    away *= 2.0 * np.linalg.norm(hi - lo) / np.linalg.norm(away, axis=1, keepdims=True)
+    target = np.where((np.arange(n) % 2 == 1)[:, None],
+                      np.asarray(NORTH_STAR["mic_position"], np.float32), points + away)
+    along = (target - points).astype(np.float32)
+    mag = np.linalg.norm(along, axis=1).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)  # noqa: E731
+    decided = _compare_batch("hall_decided", soup, t(points), t(along / mag[:, None]),
+                             t(mag * np.float32(1.001) + np.float32(0.01)), t(mag))
+    ph.out.update({"table_blocks": int(soup.block_aabb.shape[0]), "batch": rec,
+                   "decided_batch": decided})
     if rec["hits"] != m:
         raise AssertionError(f"primary rays inside the closed hall must all hit: {rec['hits']}")
+    if decided["hits"] < n // 2:
+        raise AssertionError(f"the hall's decided batch has {decided['hits']} hits of {n}")
+    if decided["schedule"]["slices"] <= CLOSEST_SLICES:
+        raise AssertionError(f"the hall's decided batch ran {decided['schedule']}, not "
+                             f"more slices than a closest-hit batch")
     return rec
 
 
@@ -1085,38 +1133,83 @@ def _phase_order(ph, dev, scene):
     return ph.out
 
 
-def _unpack_record(soup, args, order, slices, m):
-    """The unpack kernel (closest_hit_unpack, launched by the same wrapper
-    call as the sweep) at one batch: device ms per launch from
-    torch.profiler, beside the card's floor for one launch (a 1-element
-    zero_() in the same session), its plain version's ms (unpack_keys of
-    the merged keys and the seed), and its bound by bytes (keys and t_max
-    read, best_t and best_i written)."""
+def _device_ops(calls, reps):
+    """Device operations per call of each fn of ``calls`` ((label, fn)
+    pairs) under torch.profiler, ``reps`` calls each, the device
+    synchronised after every call: {label: {kernel kind: events per
+    call}}, kinds "order", "sweep", "fill" (PyTorch's fill kernel) and
+    "other" (any other device event, memsets and copies included). The
+    profiler has lost events on the card (_profiled_many), so a kind reads
+    below 1.0 when it dropped some; a kind it never saw is absent."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, fn in calls:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+        kinds = {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            kind = next((k for k, n in (("order", "closest_hit_order"),
+                                        ("sweep", "closest_hit_sweep"),
+                                        ("fill", "FillFunctor")) if n in e.name), "other")
+            kinds[kind] = kinds.get(kind, 0) + 1
+        out[label] = {k: v / reps for k, v in sorted(kinds.items())}
+    return out
+
+
+def _epilogue_record(soup, args, order, slices, m):
+    """The sweep's epilogue (the slices' merge and the Hit, written by
+    closest_hit_sweep itself) at one batch: the device operations of one
+    intersect.closest_hit call counted by torch.profiler (no bounds, with
+    bounds, with stats), which must be the order kernel and the sweep
+    (and one fill with stats) and nothing else; the sweep's device ms
+    beside the card's floor for one launch (a 1-element zero_() in the same
+    session); the epilogue's plain version's ms (hit_from_raw of the raw
+    results) and its bound by bytes (the Hit written); and the kernel's
+    Hit without bounds (null t_max and t_decide) against its Hit with
+    +inf and 0 tensors."""
     import torch
 
     from rayverb_tpu_torch.ops import intersect_cuda
-    from rayverb_tpu_torch.ops.intersect import pack_keys, unpack_keys
+    from rayverb_tpu_torch.ops.intersect import closest_hit, hit_from_raw, raw_from_hit
 
-    # the card's floor for one launch, in the same session: a 1-element
-    # zero_() (PyTorch's fill kernel)
-    one = torch.zeros((1,), device=args[0].device)
-    prof = _profiled_many(
-        [(lambda: intersect_cuda.closest_hit_cuda(*args, order, slices), "closest_hit_unpack"),
-         (one.zero_, "FillFunctor")], 20)
-    ms = prof["closest_hit_unpack"]
-    t, i = intersect_cuda.closest_hit_cuda(*args, order, slices)
-    keys = pack_keys(t, i)
-    seed = pack_keys(args[4], torch.full_like(i, -1))
-    plain_t, plain_i = unpack_keys(torch.minimum(keys, seed))
-    mismatch = int((plain_t.view(torch.int32) != t.view(torch.int32)).sum()
-                   + (plain_i != i).sum())
+    o, d, t_max = args[0], args[1], args[4]
+    ops = _device_ops([
+        ("no_bounds", lambda: closest_hit(o, d, soup)),
+        ("bounds", lambda: closest_hit(o, d, soup, t_max=t_max)),
+        ("stats", lambda: closest_hit(o, d, soup, t_max=t_max, with_stats=True)),
+    ], 20)
+    for label, kinds in ops.items():
+        want = {"order", "sweep"} | ({"fill"} if label == "stats" else set())
+        if set(kinds) != want or min(kinds.values()) < 0.5 or max(kinds.values()) > 1.0:
+            raise AssertionError(f"one closest_hit call ({label}) is not {sorted(want)} "
+                                 f"on the device: {kinds}")
+    one = torch.zeros((1,), device=o.device)
+    prof = _profiled_many([
+        (lambda: intersect_cuda.closest_hit_cuda(*args, order, slices), "closest_hit_sweep"),
+        (one.zero_, "FillFunctor")], 20)
+    hit = intersect_cuda.closest_hit_cuda(*args, order, slices)
+    null = closest_hit(o, d, soup)
+    raw_t, raw_i = raw_from_hit(hit, t_max)
+    mismatch = _hit_mismatch(hit_from_raw(raw_t, raw_i), hit) + _hit_mismatch(null, hit)
     if mismatch:
-        raise AssertionError(f"unpack: the plain version differs in {mismatch} rows")
+        raise AssertionError(f"epilogue: {mismatch} rows differ without bounds or back "
+                             f"through raw_from_hit")
     return {
-        "ms": ms,
+        "device_ops_per_call": ops,
+        "slices": slices,
+        "sweep_ms": prof["closest_hit_sweep"],
         "launch_floor_ms": prof["FillFunctor"],
-        "plain_ms": _cuda_ms(lambda: unpack_keys(torch.minimum(keys, seed)), 20),
-        "bound_ms": 20 * m / HBM_BYTES_PER_S * 1e3,
+        "plain_ms": _cuda_ms(lambda: hit_from_raw(raw_t, raw_i), 20),
+        "bound_ms": HIT_BYTES * m / HBM_BYTES_PER_S * 1e3,
         "mismatch": mismatch,
     }
 
@@ -1694,6 +1787,7 @@ class _SweepCapture:
 
     def __enter__(self):
         from rayverb_tpu_torch.ops import intersect_cuda
+        from rayverb_tpu_torch.ops.intersect import _bounds
 
         real = intersect_cuda.closest_hit_cuda
 
@@ -1707,7 +1801,9 @@ class _SweepCapture:
                 name = "largest_image"
                 self.kept["largest_image_call"] = i
             if name is not None:
-                self.kept[name] = tuple(x.clone() for x in (o, d, t_max, t_decide, order)) + (slices,)
+                # an absent bound (the kernel reads +inf or 0) kept as a tensor
+                bounds = _bounds(o.shape[0], t_max, t_decide, o.device)
+                self.kept[name] = tuple(x.clone() for x in (o, d, *bounds, order)) + (slices,)
             return real(o, d, packed, aabb, t_max, t_decide, order, slices, **kw)
 
         self._patch = mock.patch.object(intersect_cuda, "closest_hit_cuda", spy)
@@ -1721,7 +1817,7 @@ class _SweepCapture:
 def _datagen_sweeps_vs_plain(soup, kept, npairs):
     """Each captured config 5 sweep against its plain version on the card:
     the order kernel's table against block_order, and the sweep kernel's
-    t, index and executed-pair counters against closest_hit_plain, bit for
+    Hit and executed-pair counters against closest_hit_plain's, bit for
     bit (_run_schedule). The shadow sweep's live rows must come first and
     run pair-major: at most one run of equal origins (a mic) per pair.
     Returns a record per sweep."""
@@ -1748,7 +1844,7 @@ def _datagen_sweeps_vs_plain(soup, kept, npairs):
         out[name] = {"rows": o.shape[0], "live_rows": nlive, "origin_runs": origin_runs,
                      "slices": slices, "order_mismatch": order_mismatch,
                      "decided_rows": int((t_decide > 0).sum()),
-                     "mismatch_t": rec["mismatch_t"], "mismatch_i": rec["mismatch_i"],
+                     "mismatch_hit": rec["mismatch_hit"],
                      "mismatch_executed": rec["mismatch_executed"], "hits": rec["hits"],
                      "executed_pairs": rec["executed_pairs"], "ms": rec["ms"],
                      "compare_s": time.perf_counter() - t0}
@@ -2236,7 +2332,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     primary = batches[0]
-    unpack = primary["unpack"]
+    epilogue = primary["epilogue"]
     # launches of each path, counted from 0 just before its warm run (the
     # north star's: its warm render); "launches" is the binaural vault's
     paths = {"main_path": runs[-1], "hrtf_main_path": hrtf_runs[-1], "north_star": north[-1],
@@ -2289,21 +2385,24 @@ def main() -> int:
         "k": {"primary": primary["order_k"], "hall": hall["order_k"], **order_rec["north_star_k"]},
         "edge_case_mismatches": order_rec["mismatches"],
     }, {
-        "name": "closest_hit_unpack",
+        # the merge of the kernel's outputs and the Hit mapping, done by the
+        # sweep's epilogue: no launch of its own; "ms" is the sweep's device
+        # time, which carries it, beside the card's launch floor
+        "name": "closest_hit_epilogue",
         "route": "cuda",
         "source": "rayverb_tpu_torch/csrc/closest_hit.cu",
         "replaces": "rayverb_tpu/ops/intersect_pallas.py:472",
-        # launched by the same wrapper call as the sweep, so it shares the
-        # sweep's count
-        "launches": hrtf_runs[-1]["launches"],
-        "launches_by_path": {k: r["launches"] for k, r in paths.items()},
-        "max_abs_err": float(unpack["mismatch"]),
-        "ms": unpack["ms"],
-        "plain_ms": unpack["plain_ms"],
-        "bound_ms": unpack["bound_ms"],
+        "folded_into": "closest_hit_sweep",
+        "launches": 0,
+        "launches_by_path": {k: 0 for k in paths},
+        "max_abs_err": float(epilogue["mismatch"]),
+        "ms": epilogue["sweep_ms"],
+        "plain_ms": epilogue["plain_ms"],
+        "bound_ms": epilogue["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        "launch_floor_ms": unpack["launch_floor_ms"],
+        "launch_floor_ms": epilogue["launch_floor_ms"],
+        "device_ops_per_call": epilogue["device_ops_per_call"],
     }, {
         "name": "biquad_scan",
         "route": "cuda",

@@ -46,19 +46,36 @@
 //      culls with its own running best, so slices add executed pairs;
 //      sweep_slices (ops/intersect.py) takes 8 for closest-hit batches and
 //      for decided batches only as many as keep the card busy, the counts
-//      that ran fastest on whole renders' sweeps on the H100. Slices merge
-//      with one 64-bit atomicMin per ray on the same key. Accepted t >
-//      EPSILON > 0, so the key's minimum is the tie rule; the key array
-//      starts all-ones and a second kernel takes the minimum with the seed
-//      (t_max, 0xFFFFFFFF), so t == t_max still wins with any index, and
-//      maps index 0xFFFFFFFF to -1. Dead rows are never touched. The
+//      that ran fastest on whole renders' sweeps on the H100. Each slice
+//      ends with its best as the same key; accepted t > EPSILON > 0, so
+//      the keys' minimum is the tie rule, and its minimum with the seed
+//      (t_max, 0xFFFFFFFF) keeps t == t_max winning with any index. The
 //      minimum is commutative, so the result does not depend on which
 //      slice finishes first.
-//   3. Each group walks the blocks near to far (the order table, made on
+//   3. The sweep's epilogue writes the caller's Hit itself (t, +inf on a
+//      miss; int64 index, 0 on a miss; bool hit: the mapping of
+//      rayverb_tpu/ops/intersect_pallas.py:686-690, whose plain version is
+//      intersect.py::hit_from_raw), so a closest-hit call is two launches,
+//      the order kernel and this one, with no scratch to reset:
+//        - one slice: the thread block owns its rays and writes them;
+//        - more slices, the last arriver: each slice takes the minimum
+//          into a key scratch with one 64-bit atomicMin per ray and then
+//          a ticket on its group's arrival counter (one release-acquire
+//          atomic); the slice that arrives last exchanges the keys back to
+//          all-ones, resets the counter and writes the Hit, so the scratch
+//          is clean after every launch.
+//      Every thread block arrives, those of dead groups and empty slices
+//      too. A merge in a thread block cluster (each slice's keys in
+//      shared memory, rank 0 reading its peers') ran 1.5-2.5x slower on
+//      the H100 at 8 slices: a cluster's finished slices hold their SMs
+//      until its slowest ends. The epilogue adds 2-3 % to the sweep's
+//      device time, and takes from each call a memset, a second kernel
+//      and four elementwise ops that mapped its outputs (PERF.md).
+//   4. Each group walks the blocks near to far (the order table, made on
 //      the card by closest_hit_order below), so the first wall's best_t
 //      slab-culls the blocks behind it. The table is (groups x nblocks)
 //      int32.
-//   4. A thread block stages one 128-row triangle tile at a time in shared
+//   5. A thread block stages one 128-row triangle tile at a time in shared
 //      memory (float4 loads, rows padded to 20 floats so that the 4 rows a
 //      ray's threads read at once fall in distinct banks); a tile that no
 //      ray of the block needs is neither loaded nor tested
@@ -66,13 +83,14 @@
 //      n.o and n.d forms are independent chains, and the divide and the
 //      rest of the test run only for rows that pass divide_may_accept, an
 //      exact pre-test that never rejects a pair the full test accepts.
-//   5. Executed pair tests (kTile per block a ray takes part in, per slice)
+//   6. Executed pair tests (kTile per block a ray takes part in, per slice)
 //      are counted per ray and added with one atomicAdd per ray and slice.
 //
 // Arithmetic is written operation for operation as closest_hit_plain does
 // it, the file is built with --fmad=false (no FMA contraction) and IEEE
-// division, so the kernel's (best_t, best_i) and counters equal the plain
-// version's bit for bit on the same schedule.
+// division, so the kernel's Hit and counters equal hit_from_raw of the
+// plain version's (best_t, best_i) and its counters bit for bit on the
+// same schedule.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -88,6 +106,9 @@ constexpr int kRowFloats = 16;    // packed row width
 // of a ray read at once fall in distinct banks
 constexpr int kStride = 20;
 constexpr int kUnroll = 4;        // rows per thread and step of the row loop
+// thread blocks of the sweep per SM: holds it to 56 registers a thread,
+// what the row loop needs without spilling (64 would allow only 8)
+constexpr int kSweepBlocksPerSm = 9;
 constexpr float kEps = 1e-4f;     // rayverb_tpu_torch.constants.EPSILON
 constexpr float kSlack = 1.0f + 0x1p-20f;
 // groups (warps) of an order thread block, at most
@@ -130,7 +151,43 @@ __device__ __forceinline__ unsigned long long pack_key(float t, int i) {
   return ((unsigned long long)__float_as_uint(t) << 32) | (unsigned int)i;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The ray's bound: +inf where the caller gave no t_max.
+__device__ __forceinline__ float ray_bound(const float* __restrict__ t_max,
+                                           int ray) {
+  return t_max != nullptr ? t_max[ray] : INFINITY;
+}
+
+// One arrival on a group's counter: returns the count before it. Release
+// and acquire at device scope: the thread block's atomicMins, ordered
+// before this by the barrier before it, are performed before the ticket
+// is taken, and the slice that draws the last ticket sees every other
+// slice's (the barrier after it hands that on to its other threads).
+__device__ __forceinline__ unsigned int take_ticket(unsigned int* counter) {
+  unsigned int old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(counter), "r"(1u)
+               : "memory");
+  return old;
+}
+
+// The Hit of one ray from its slices' merged key and the seed (t_max,
+// 0xFFFFFFFF): intersect.py::hit_from_raw of unpack_keys(min(key, seed)).
+__device__ __forceinline__ void write_hit(unsigned long long key,
+                                          float bound, int ray,
+                                          float* __restrict__ hit_t,
+                                          long long* __restrict__ hit_index,
+                                          bool* __restrict__ hit_found) {
+  key = min(key, pack_key(bound, -1));
+  const unsigned int lo = (unsigned int)key;
+  const int bi = lo == 0xFFFFFFFFu ? -1 : (int)lo;
+  const bool found = bi >= 0;
+  hit_t[ray] = found ? __uint_as_float((unsigned int)(key >> 32)) : INFINITY;
+  hit_index[ray] = found ? (long long)bi : 0;
+  hit_found[ray] = found;
+}
+
+__global__ void __launch_bounds__(kThreads, kSweepBlocksPerSm)
 closest_hit_sweep(const float* __restrict__ origins,
                   const float* __restrict__ dirs,
                   const float* __restrict__ t_max,
@@ -139,7 +196,11 @@ closest_hit_sweep(const float* __restrict__ origins,
                   const float* __restrict__ aabb,
                   const int* __restrict__ order, int m, int nblocks,
                   int slices, unsigned long long* __restrict__ keys,
-                  unsigned long long* __restrict__ executed) {
+                  unsigned int* __restrict__ arrivals,
+                  unsigned long long* __restrict__ executed,
+                  float* __restrict__ hit_t,
+                  long long* __restrict__ hit_index,
+                  bool* __restrict__ hit_found) {
   __shared__ float4 tile[kTile * kStride / 4];
 
   const int group = blockIdx.x;
@@ -158,8 +219,8 @@ closest_hit_sweep(const float* __restrict__ origins,
     dx = dirs[3 * ray + 0];
     dy = dirs[3 * ray + 1];
     dz = dirs[3 * ray + 2];
-    bt = t_max[ray];
-    decide = t_decide[ray];
+    bt = ray_bound(t_max, ray);
+    decide = t_decide != nullptr ? t_decide[ray] : 0.f;
   }
   const float ivx = 1.0f / dx;
   const float ivy = 1.0f / dy;
@@ -243,26 +304,36 @@ closest_hit_sweep(const float* __restrict__ origins,
     bt = __uint_as_float((unsigned int)(key >> 32));
     bi = (int)(unsigned int)key;
   }
-  if (part != 0) return;
-  if (bi >= 0) atomicMin(keys + ray, pack_key(bt, bi));
-  if (executed != nullptr && count != 0) {
+
+  // the epilogue: thread `part` 0 of each ray counts and writes; every
+  // thread block reaches it (no early return above)
+  const bool writer = part == 0 && in_range;
+  if (writer && executed != nullptr && count != 0) {
     atomicAdd(executed + ray, count);
   }
-}
-
-// (best_t, best_i) from the merged key and the seed (t_max, 0xFFFFFFFF).
-__global__ void closest_hit_unpack(const unsigned long long* __restrict__ keys,
-                                   const float* __restrict__ t_max, int m,
-                                   float* __restrict__ best_t,
-                                   int* __restrict__ best_i) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const unsigned long long seed =
-      ((unsigned long long)__float_as_uint(t_max[i]) << 32) | 0xFFFFFFFFull;
-  const unsigned long long key = min(keys[i], seed);
-  const unsigned int lo = (unsigned int)key;
-  best_t[i] = __uint_as_float((unsigned int)(key >> 32));
-  best_i[i] = lo == 0xFFFFFFFFu ? -1 : (int)lo;
+  // this slice's key; a slice without a hit leaves all-ones (the seed's
+  // minimum then gives the miss). The seed's bound is read again here
+  // rather than kept in a register through the loop
+  const unsigned long long own = bi >= 0 ? pack_key(bt, bi) : ~0ull;
+  if (slices == 1) {
+    if (writer) {
+      write_hit(own, ray_bound(t_max, ray), ray, hit_t, hit_index, hit_found);
+    }
+    return;
+  }
+  __shared__ unsigned int last;
+  if (writer && bi >= 0) atomicMin(keys + ray, own);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = take_ticket(arrivals + group) == (unsigned int)(slices - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  if (writer) {
+    write_hit(atomicExch(keys + ray, ~0ull), ray_bound(t_max, ray), ray,
+              hit_t, hit_index, hit_found);
+  }
+  if (threadIdx.x == 0) arrivals[group] = 0u;
 }
 
 // The near-to-far block order of each group of kRays rays: one warp per
@@ -375,7 +446,8 @@ closest_hit_order(const float* __restrict__ origins,
       own + (spill != nullptr ? 0 : nblocks));
 
   const int ray = group * kRays + lane;
-  const unsigned live = __ballot_sync(kFull, ray < m && t_max[ray] > 0.f);
+  const unsigned live = __ballot_sync(
+      kFull, ray < m && (t_max == nullptr || t_max[ray] > 0.f));
   const int rep =
       min(group * kRays + (live != 0u ? __ffs(live) - 1 : 0), m - 1);
   const float ox = origins[3 * rep + 0];
@@ -456,7 +528,8 @@ closest_hit_order(const float* __restrict__ origins,
 }  // namespace
 
 // C interface for ctypes: the near-to-far block order of each group of 32
-// rays (closest_hit_order). origins and dirs (m, 3), t_max (m,), aabb
+// rays (closest_hit_order). origins and dirs (m, 3), t_max (m,) or null
+// (every ray live), aabb
 // (nblocks, 8) float32 (16-byte aligned), order (ceil(m / 32), nblocks)
 // int32; nblocks a power of two. `warps` groups per thread block and
 // `smem` bytes of dynamic shared memory, as intersect_cuda.order_launch
@@ -491,33 +564,34 @@ extern "C" int rv_block_order(const void* origins, const void* dirs,
 }
 
 // C interface for ctypes. All pointers are device pointers of contiguous
-// arrays: origins and dirs (m, 3) float32, t_max and t_decide (m,)
-// float32, packed (nblocks * 128, 16) float32, aabb (nblocks, 8) float32,
-// order (ceil(m / 32), nblocks) int32, keys (m,) 64-bit scratch, executed
-// (m,) int64 added to (or null: no counters), best_t (m,) float32 and
-// best_i (m,) int32. Enqueues on `stream` and returns the first CUDA
-// error of the enqueue (0 if none).
+// arrays: origins and dirs (m, 3) float32; t_max and t_decide (m,)
+// float32, or null (+inf and 0 for every ray); packed (nblocks * 128, 16)
+// float32, aabb (nblocks, 8) float32, order (ceil(m / 32), nblocks)
+// int32; keys (m,) 64-bit all-ones and arrivals (ceil(m / 32),) 32-bit
+// zeros, the merge's scratch for slices > 1, which the launch leaves as
+// it found them (null for one slice); executed (m,) int64 added to (or
+// null: no counters); the Hit: hit_t (m,) float32, hit_index (m,) int64,
+// hit_found (m,) bool. Returns cudaErrorInvalidValue without the scratch
+// where slices > 1, else enqueues one launch on `stream` and returns the
+// first CUDA error of the enqueue (0 if none).
 extern "C" int rv_closest_hit(const void* origins, const void* dirs,
                               const void* t_max, const void* t_decide,
                               const void* packed, const void* aabb,
                               const void* order, int m, int nblocks,
-                              int slices, void* keys, void* executed,
-                              void* best_t, void* best_i, void* stream) {
+                              int slices, void* keys, void* arrivals,
+                              void* executed, void* hit_t, void* hit_index,
+                              void* hit_found, void* stream) {
   if (m <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(keys, 0xFF,
-                                    sizeof(unsigned long long) * (size_t)m, s);
-  if (err != cudaSuccess) return (int)err;
+  if (slices < 1 || slices > nblocks ||
+      (slices > 1 && (keys == nullptr || arrivals == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
   dim3 grid((m + kRays - 1) / kRays, slices);
-  closest_hit_sweep<<<grid, kThreads, 0, s>>>(
+  closest_hit_sweep<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)origins, (const float*)dirs, (const float*)t_max,
       (const float*)t_decide, (const float4*)packed, (const float*)aabb,
       (const int*)order, m, nblocks, slices, (unsigned long long*)keys,
-      (unsigned long long*)executed);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  closest_hit_unpack<<<(m + 255) / 256, 256, 0, s>>>(
-      (const unsigned long long*)keys, (const float*)t_max, m, (float*)best_t,
-      (int*)best_i);
+      (unsigned int*)arrivals, (unsigned long long*)executed, (float*)hit_t,
+      (long long*)hit_index, (bool*)hit_found);
   return (int)cudaGetLastError();
 }

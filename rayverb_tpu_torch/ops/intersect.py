@@ -9,7 +9,9 @@ implementations with one contract:
   - ``closest_hit_plain``: chunked brute-force PyTorch over the packed rows,
     the kernel's plain version (CPU tensors, tests, on-card comparisons)
   - ``intersect_cuda.closest_hit_cuda``: the hand-written CUDA kernel
-    (csrc/closest_hit.cu), taken for every CUDA tensor
+    (csrc/closest_hit.cu), taken for every CUDA tensor; its epilogue
+    merges the slices and writes the Hit (``hit_from_raw`` is its plain
+    version)
 
 Contract (that of rayverb_tpu/ops/intersect_pallas.py::_kernel):
   - pair test on the Woop rows of ``build_sweep_table``: ``|n.d| < EPSILON``
@@ -29,8 +31,9 @@ Closest-hit rows (``t_decide = 0``) do not depend on the schedule; decided
 rows may return another witness blocker, never another verdict. Per ray,
 slice and block both decide at the block's entry whether it runs, and their
 arithmetic is the same operation for operation, so on the same inputs and
-schedule they return the same bits and executed-pair counts (the kernel is
-built without FMA contraction).
+schedule the kernel's Hit is bit for bit ``hit_from_raw`` of the plain
+version's results, with the same executed-pair counts (the kernel is built
+without FMA contraction).
 """
 
 from __future__ import annotations
@@ -363,17 +366,18 @@ def block_order(origins, dirs, t_max, block_aabb) -> torch.Tensor:
     """(groups, nblocks) int32 near-to-far block order of each group of
     SWEEP_RAYS consecutive rays.
 
-    The group's first live ray (t_max > 0; the first row of a dead group)
-    ranks each block by where its line enters the block's AABB (0 from
-    inside); blocks it does not meet come last. Ties go to the lower block
-    index. Only elementwise IEEE operations and an integer sort are used,
-    so every device computes the same table from the same inputs."""
+    The group's first live ray (t_max > 0, every ray where t_max is None;
+    the first row of a dead group) ranks each block by where its line
+    enters the block's AABB (0 from inside); blocks it does not meet come
+    last. Ties go to the lower block index. Only elementwise IEEE
+    operations and an integer sort are used, so every device computes the
+    same table from the same inputs."""
     m = origins.shape[0]
     nb = block_aabb.shape[0]
     groups = -(-m // SWEEP_RAYS)
     dev = origins.device
     live = torch.zeros((groups * SWEEP_RAYS,), dtype=torch.uint8, device=dev)
-    live[:m] = t_max > 0
+    live[:m] = True if t_max is None else t_max > 0
     first = torch.argmax(live.view(groups, SWEEP_RAYS), dim=1)
     rep = torch.clamp(
         torch.arange(groups, device=dev) * SWEEP_RAYS + first, max=max(m - 1, 0)
@@ -392,7 +396,8 @@ def block_order(origins, dirs, t_max, block_aabb) -> torch.Tensor:
 def sweep_schedule(origins, dirs, t_max, block_aabb, decided=False):
     """(order, slices) of a sweep: block_order (for CUDA tensors its kernel,
     intersect_cuda.block_order_cuda, in one launch) and sweep_slices. The
-    dispatcher computes it once and hands it to whichever version runs."""
+    dispatcher computes it once and hands it to whichever version runs.
+    t_max None: every ray is live."""
     if origins.is_cuda:
         from .intersect_cuda import block_order_cuda as order_fn
     else:
@@ -530,6 +535,29 @@ def closest_hit_plain(
     return out_t, out_i
 
 
+def hit_from_raw(best_t, best_i) -> Hit:
+    """The Hit of raw sweep results (best_t f32, best_i i32, -1 = none):
+    t = +inf and index 0 on a miss (rayverb_tpu/ops/intersect_pallas.py:
+    686-690). The plain version of the CUDA kernel's epilogue, which writes
+    these fields itself."""
+    found = best_i >= 0
+    return Hit(
+        t=torch.where(found, best_t, float("inf")),
+        index=torch.clamp(best_i, min=0).to(torch.int64),
+        hit=found,
+    )
+
+
+def raw_from_hit(hit: Hit, t_max=None):
+    """Inverse of hit_from_raw for a sweep with per-ray bounds ``t_max``
+    (None: +inf): (best_t, best_i), t_max and -1 on a miss, bit for bit
+    the raw results that the Hit came from."""
+    if t_max is None:
+        t_max = torch.full_like(hit.t, float("inf"))
+    return (torch.where(hit.hit, hit.t, t_max),
+            torch.where(hit.hit, hit.index, -1).to(torch.int32))
+
+
 def _bounds(m, t_max, t_decide, device):
     if t_max is None:
         t_max = torch.full((m,), float("inf"), device=device)
@@ -562,39 +590,37 @@ def closest_hit(
     stops refining, so its (t, index) may be a witness blocker rather than
     the closest; pass it only for rows whose consumer reads the verdict.
 
+    With the kernel a call is two launches, the order kernel and the sweep
+    (which writes the Hit), and a zero-fill of the counters with stats.
+
     with_stats=True returns (Hit, executed pair tests per ray)."""
     if impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"impl must be 'auto', 'cuda' or 'plain', not {impl!r}")
     origins = origins.to(torch.float32).contiguous()
     dirs = dirs.to(torch.float32).contiguous()
     decided = t_decide is not None
+    if impl == "cuda" or (impl == "auto" and origins.is_cuda):
+        from .intersect_cuda import closest_hit_cuda
+
+        # an absent bound stays absent: the kernels read +inf or 0
+        t_max, t_decide = (
+            None if x is None else x.to(torch.float32).contiguous()
+            for x in (t_max, t_decide)
+        )
+        order, slices = sweep_schedule(
+            origins, dirs, t_max, soup.block_aabb, decided
+        )
+        return closest_hit_cuda(
+            origins, dirs, soup.packed, soup.block_aabb, t_max, t_decide,
+            order, slices, with_stats=with_stats,
+        )
     t_max, t_decide = _bounds(origins.shape[0], t_max, t_decide, origins.device)
-    use_kernel = impl == "cuda" or (impl == "auto" and origins.is_cuda)
-    if use_kernel:
-        from .intersect_cuda import closest_hit_cuda as sweep
-    else:
-        sweep = closest_hit_plain
-    order, slices = sweep_schedule(
-        origins, dirs, t_max, soup.block_aabb, decided
+    order, slices = sweep_schedule(origins, dirs, t_max, soup.block_aabb, decided)
+    out = closest_hit_plain(
+        origins, dirs, soup.packed, soup.block_aabb, t_max, t_decide, order,
+        slices, with_stats=with_stats,
     )
-    out = sweep(
-        origins,
-        dirs,
-        soup.packed,
-        soup.block_aabb,
-        t_max,
-        t_decide,
-        order,
-        slices,
-        with_stats=with_stats,
-    )
-    best_t, best_i = out[0], out[1]
-    found = best_i >= 0
-    hit = Hit(
-        t=torch.where(found, best_t, float("inf")),
-        index=torch.clamp(best_i, min=0).to(torch.int64),
-        hit=found,
-    )
+    hit = hit_from_raw(out[0], out[1])
     return (hit, out[2]) if with_stats else hit
 
 

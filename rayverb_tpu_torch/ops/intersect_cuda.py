@@ -1,12 +1,14 @@
 """Wrappers of the hand-written CUDA closest-hit kernels
 (csrc/closest_hit.cu), which replace the TPU kernel
-rayverb_tpu/ops/intersect_pallas.py::_kernel and the block order that its
+rayverb_tpu/ops/intersect_pallas.py::_kernel with the Hit mapping of its
+wrapper (intersect_pallas.py:686-690), and the block order that its
 wrapper computes (intersect_pallas.py:604-646).
 
 The kernel is built with nvcc at first use (cuda_build) and called through
 its C interface with ctypes. This module imports without nvcc or a GPU;
 nothing is built until the first launch. The plain versions of the kernels
-are intersect.closest_hit_plain and intersect.block_order.
+are intersect.closest_hit_plain (with intersect.hit_from_raw) and
+intersect.block_order.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ def _kernel():
         sweep = lib.rv_closest_hit
         sweep.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p
-        ] * 5
+        ] * 7
         sweep.restype = ctypes.c_int
         order = lib.rv_block_order
         order.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
@@ -106,7 +108,8 @@ def block_order_cuda(origins, dirs, t_max, block_aabb):
     SWEEP_RAYS rays: intersect.block_order, computed by the CUDA kernel
     closest_hit_order in one launch on the current stream. The table's
     block count must be a power of two (build_sweep_table's); the tensors
-    contiguous float32 on one CUDA device, the AABBs 16-byte aligned."""
+    contiguous float32 on one CUDA device, the AABBs 16-byte aligned;
+    t_max None: every ray is live."""
     global order_launches
     if not origins.is_cuda:
         raise ValueError(
@@ -120,7 +123,8 @@ def block_order_cuda(origins, dirs, t_max, block_aabb):
     nb = block_aabb.shape[0]
     _check("origins", origins, (m, 3), torch.float32, dev)
     _check("dirs", dirs, (m, 3), torch.float32, dev)
-    _check("t_max", t_max, (m,), torch.float32, dev)
+    if t_max is not None:
+        _check("t_max", t_max, (m,), torch.float32, dev)
     _check("block_aabb", block_aabb, (nb, 8), torch.float32, dev)
     if nb <= 0 or nb & (nb - 1):
         raise ValueError(f"block count must be a power of two, got {nb}")
@@ -143,7 +147,7 @@ def block_order_cuda(origins, dirs, t_max, block_aabb):
         err = fn(
             origins.data_ptr(),
             dirs.data_ptr(),
-            t_max.data_ptr(),
+            _ptr(t_max),
             aabb_ptr,
             m,
             nb,
@@ -159,16 +163,47 @@ def block_order_cuda(origins, dirs, t_max, block_aabb):
     return order
 
 
+# (device, stream) -> (keys (n,) int64 all-ones, arrivals (ceil(n / 32),)
+# int32 zeros): the sweep's merge scratch for more than one slice, which
+# every launch leaves as it found it, so it is filled once and grown when
+# a larger batch comes
+_merge_scratch: dict = {}
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _scratch(dev, stream, m):
+    keys, arrivals = _merge_scratch.get((dev, stream), (None, None))
+    if keys is None or keys.numel() < m:
+        from .intersect import SWEEP_RAYS
+
+        n = max(m, 2 * (0 if keys is None else keys.numel()))
+        keys = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        arrivals = torch.zeros((-(-n // SWEEP_RAYS),), dtype=torch.int32, device=dev)
+        _merge_scratch[(dev, stream)] = (keys, arrivals)
+    return keys, arrivals
+
+
 def closest_hit_cuda(
     origins, dirs, packed, block_aabb, t_max, t_decide, order, slices, *,
     with_stats=False,
 ):
-    """Raw (best_t (M,) float32, best_i (M,) int32, -1 = none), and with
-    with_stats=True the (M,) int64 executed pair tests per ray: the same
-    contract, arguments and schedule as intersect.closest_hit_plain,
-    computed by the CUDA kernel on the current stream. Every tensor must be
-    a contiguous CUDA tensor on one device (float32; ``order`` int32);
-    anything else raises."""
+    """The Hit (intersect.Hit: t (M,) float32, +inf on a miss; index (M,)
+    int64, 0 on a miss; hit (M,) bool), and with with_stats=True also the
+    (M,) int64 executed pair tests per ray, of the sweep that
+    intersect.closest_hit_plain computes with the same arguments and
+    schedule, mapped by intersect.hit_from_raw: one launch of the CUDA
+    kernel on the current stream, whose epilogue merges the slices and
+    writes the Hit. t_max and t_decide may be None (+inf and 0 for every
+    ray). Every tensor must be a contiguous CUDA tensor on one device
+    (float32; ``order`` int32); anything else raises.
+
+    Calls on one device are stream-ordered: every launch goes on the
+    current stream (render_fused_sharded runs one process per card), and
+    the merge scratch belongs to its (device, stream) pair, so two
+    launches that share a scratch never overlap."""
     global launches
     if not origins.is_cuda:
         raise ValueError(
@@ -178,48 +213,53 @@ def closest_hit_cuda(
     dev = origins.device
     m = origins.shape[0]
     nb = block_aabb.shape[0]
-    from .intersect import SWEEP_BLOCK, check_schedule
+    from .intersect import SWEEP_BLOCK, Hit, check_schedule
 
     _check("origins", origins, (m, 3), torch.float32, dev)
     _check("dirs", dirs, (m, 3), torch.float32, dev)
-    _check("t_max", t_max, (m,), torch.float32, dev)
-    _check("t_decide", t_decide, (m,), torch.float32, dev)
+    if t_max is not None:
+        _check("t_max", t_max, (m,), torch.float32, dev)
+    if t_decide is not None:
+        _check("t_decide", t_decide, (m,), torch.float32, dev)
     _check("packed", packed, (nb * SWEEP_BLOCK, 16), torch.float32, dev)
     _check("block_aabb", block_aabb, (nb, 8), torch.float32, dev)
     check_schedule(order, slices, m, nb)
     _check("order", order, order.shape, torch.int32, dev)
     if packed.data_ptr() % 16:
         raise ValueError("packed must be 16-byte aligned (the kernel reads float4)")
-    best_t = torch.empty((m,), dtype=torch.float32, device=dev)
-    best_i = torch.empty((m,), dtype=torch.int32, device=dev)
+    hit = Hit(
+        t=torch.empty((m,), dtype=torch.float32, device=dev),
+        index=torch.empty((m,), dtype=torch.int64, device=dev),
+        hit=torch.empty((m,), dtype=torch.bool, device=dev),
+    )
     executed = (
         torch.zeros((m,), dtype=torch.int64, device=dev) if with_stats else None
     )
     if m > 0:
-        keys = torch.empty((m,), dtype=torch.int64, device=dev)
         fn, _ = _kernel()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            keys, arrivals = _scratch(dev, stream, m) if slices > 1 else (None, None)
             err = fn(
                 origins.data_ptr(),
                 dirs.data_ptr(),
-                t_max.data_ptr(),
-                t_decide.data_ptr(),
+                _ptr(t_max),
+                _ptr(t_decide),
                 packed.data_ptr(),
                 block_aabb.data_ptr(),
                 order.data_ptr(),
                 m,
                 nb,
                 slices,
-                keys.data_ptr(),
-                executed.data_ptr() if with_stats else None,
-                best_t.data_ptr(),
-                best_i.data_ptr(),
+                _ptr(keys),
+                _ptr(arrivals),
+                _ptr(executed),
+                hit.t.data_ptr(),
+                hit.index.data_ptr(),
+                hit.hit.data_ptr(),
                 stream,
             )
         if err != 0:
             raise RuntimeError(f"closest_hit kernel launch failed: CUDA error {err}")
         launches += 1
-    if with_stats:
-        return best_t, best_i, executed
-    return best_t, best_i
+    return (hit, executed) if with_stats else hit

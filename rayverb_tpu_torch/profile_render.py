@@ -75,7 +75,7 @@ def device_breakdown(fn) -> dict:
         "device_kernel_ms": device_ms if intervals else "not measured",
         "device_busy_ms": busy_ms if intervals else "not measured",
         "device_idle_share": 1.0 - busy_ms / (wall * 1e3) if intervals else "not measured",
-        # the sweep, block-order and unpack kernels of csrc/closest_hit.cu
+        # the sweep and block-order kernels of csrc/closest_hit.cu
         "closest_hit_kernels": {
             re.search(r"closest_hit_\w+", n).group(0): {
                 "count": v[0], "ms": v[1] / 1e3
@@ -124,8 +124,8 @@ def host_cost(soup, calls: int = 200) -> dict:
     back on one group of SWEEP_RAYS rays (the device's part is a few
     microseconds, so the wall is the host's): the whole closest_hit, its
     schedule (sweep_schedule: the order kernel), the kernel wrapper
-    (intersect_cuda.closest_hit_cuda: checks, allocations, memset, sweep,
-    unpack), and one bare PyTorch launch for scale."""
+    (intersect_cuda.closest_hit_cuda: checks, allocations, the sweep, whose
+    epilogue writes the Hit), and one bare PyTorch launch for scale."""
     import torch
 
     from .ops import intersect_cuda

@@ -8,8 +8,8 @@ every launch of the sweep kernel (1 + 2R per render, with the order table
 sweep_schedule gave it), then runs the kernel on each recorded batch at
 every slice count of SLICES that the table allows and at the one the port
 chose: its executed-pair counters, and its device time under torch.profiler
-(the sweep and unpack kernels, the mean of REPS launches; timed on the
-host's clock, a small batch would time the wrapper's host work instead).
+(the sweep kernel, the mean of REPS launches; timed on the host's clock,
+a small batch would time the wrapper's host work instead).
 It prints one JSON line per cell: per slice count, the kernel time and
 executed pairs summed over the render's sweeps, split into closest-hit
 batches and decided batches (some rows with t_decide > 0); the same sums
@@ -46,11 +46,13 @@ REPS = 5
 def record_sweeps(cell):
     """Render the cell once on the card; returns the kernel's argument
     tuples (origins, dirs, packed, aabb, t_max, t_decide, order, slices),
-    cloned, in launch order."""
+    cloned, in launch order (an absent bound kept as its +inf or 0
+    tensor)."""
     import torch
 
     from .config.schema import load_config
     from .ops import intersect_cuda
+    from .ops.intersect import _bounds
     from .ops.render import render_fused
     from .scene import load_scene
     from .utils.directions import random_directions
@@ -66,11 +68,13 @@ def record_sweeps(cell):
     batches = []
     kernel = intersect_cuda.closest_hit_cuda
 
-    def recording(*args, **kwargs):
+    def recording(o, d, packed, aabb, t_max, t_decide, order, slices, **kwargs):
+        bounds = _bounds(o.shape[0], t_max, t_decide, o.device)
         batches.append(tuple(
-            a.clone() if isinstance(a, torch.Tensor) else a for a in args
+            a.clone() if isinstance(a, torch.Tensor) else a
+            for a in (o, d, packed, aabb, *bounds, order, slices)
         ))
-        return kernel(*args, **kwargs)
+        return kernel(o, d, packed, aabb, t_max, t_decide, order, slices, **kwargs)
 
     intersect_cuda.closest_hit_cuda = recording
     try:
@@ -87,8 +91,8 @@ def _slice_counts(chosen, nb):
 
 def _run_ms(events, runs):
     """Device ms per launch of each of ``runs`` runs from the profiler's
-    (start, end, name) device events in time order: the sweep and unpack
-    kernels after the run's fill marker, over the sweeps seen."""
+    (start, end, name) device events in time order: the sweep kernel after
+    the run's fill marker, over the sweeps seen."""
     us = [[0.0, 0] for _ in range(runs)]
     k = -1
     for start, end, name in events:
@@ -104,9 +108,9 @@ def _run_ms(events, runs):
 
 def scan(batches):
     """Every recorded batch at every slice count: one row per batch, with
-    per slice count the device time of one launch (the sweep and unpack
-    kernels under torch.profiler, the mean over the launches it saw of
-    REPS) and the executed pairs."""
+    per slice count the device time of one launch (the sweep kernel under
+    torch.profiler, the mean over the launches it saw of REPS) and the
+    executed pairs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -125,7 +129,7 @@ def scan(batches):
         }
         for s in _slice_counts(chosen, aabb.shape[0]):
             call = (o, d, packed, aabb, t_max, t_decide, order, s)
-            ex = intersect_cuda.closest_hit_cuda(*call, with_stats=True)[2]
+            ex = intersect_cuda.closest_hit_cuda(*call, with_stats=True)[1]
             row["slices"][s] = {"ms": 0.0, "pairs": int(ex.sum())}
             calls.append((row["slices"][s], call))
         rows.append(row)
