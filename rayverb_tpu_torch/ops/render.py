@@ -46,6 +46,7 @@ bound).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from functools import lru_cache
@@ -63,6 +64,7 @@ from ..constants import (
 )
 from ..device import resolve_device
 from ..utils.directions import morton_order
+from ..utils.profiling import trace_into
 from .attenuate import _f32, head_basis, hrtf_gain_time, speaker_gain
 from .filters import _band_coeffs, _fft_len
 from .intersect import SWEEP_RAYS, TriangleSoup, soup_from_scene
@@ -750,94 +752,98 @@ def render_fused(
     RAYVERB_BIN. With stats=True the info dict gains device-synchronised
     phase walls and issued pair tests, and with RAYVERB_SWEEP_STATS set
     also the executed pair tests by sweep kind, counted on the device and
-    pulled once per render."""
+    pulled once per render; with RAYVERB_PROFILE_DIR set it runs under
+    torch.profiler and writes its Chrome trace into that directory
+    (utils.profiling.trace_into; JAX render.py:1184-1189)."""
     dev = resolve_device(device)
-    t_start = time.perf_counter()
-    timings: dict = {}
-    if bin_mode is None:
-        bin_mode = _bin_mode()
-    if bin_mode not in ("sorted", "scatter"):
-        raise ValueError(f"bin_mode must be 'sorted' or 'scatter', not {bin_mode!r}")
-    spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
-    if soup is None:
-        soup = soup_from_scene(scene, device=dev)
-    length = histogram_length(scene, config.reflections, config.sample_rate)
+    profile_dir = os.environ.get("RAYVERB_PROFILE_DIR") if stats else None
+    with trace_into(profile_dir, dev) if profile_dir else contextlib.nullcontext():
+        t_start = time.perf_counter()
+        timings: dict = {}
+        if bin_mode is None:
+            bin_mode = _bin_mode()
+        if bin_mode not in ("sorted", "scatter"):
+            raise ValueError(f"bin_mode must be 'sorted' or 'scatter', not {bin_mode!r}")
+        spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
+        if soup is None:
+            soup = soup_from_scene(scene, device=dev)
+        length = histogram_length(scene, config.reflections, config.sample_rate)
 
-    directions = np.asarray(directions, dtype=np.float32)
-    n = directions.shape[0]
-    if n == 0:
-        raise ValueError("need at least one ray")
-    nblocks = soup.block_aabb.shape[0]
-    order, resort = ray_schedule(directions, nblocks)
-    if order is not None:
-        directions = directions[order]
-    chunk = choose_ray_chunk(n, config.reflections, nblocks, ray_chunk,
-                             memory_budget(dev))
-    include_diffuse = config.output_mode in (OutputMode.ALL, OutputMode.DIFFUSE_ONLY)
-    pair_stats = (
-        torch.zeros((len(SWEEP_KINDS),), dtype=torch.int64, device=dev)
-        if stats and os.environ.get("RAYVERB_SWEEP_STATS")
-        else None
-    )
-
-    hist = None
-    max_t_dev = torch.zeros((), device=dev)
-    min_t_dev = torch.tensor(float("inf"), device=dev)
-    parts = []
-    for first in range(0, n, chunk):
-        hist, mx, mn, part = _fused_trace_bin(
-            soup,
-            config.mic_position,
-            config.source_position,
-            directions[first : first + chunk],
-            spec,
-            nreflections=config.reflections,
-            length=length,
-            sample_rate=config.sample_rate,
-            impl=impl,
-            include_diffuse=include_diffuse,
-            resort=resort,
-            bin_mode=bin_mode,
-            init_hist=hist,
-            stats=pair_stats,
+        directions = np.asarray(directions, dtype=np.float32)
+        n = directions.shape[0]
+        if n == 0:
+            raise ValueError("need at least one ray")
+        nblocks = soup.block_aabb.shape[0]
+        order, resort = ray_schedule(directions, nblocks)
+        if order is not None:
+            directions = directions[order]
+        chunk = choose_ray_chunk(n, config.reflections, nblocks, ray_chunk,
+                                 memory_budget(dev))
+        include_diffuse = config.output_mode in (OutputMode.ALL, OutputMode.DIFFUSE_ONLY)
+        pair_stats = (
+            torch.zeros((len(SWEEP_KINDS),), dtype=torch.int64, device=dev)
+            if stats and os.environ.get("RAYVERB_SWEEP_STATS")
+            else None
         )
-        max_t_dev = torch.maximum(max_t_dev, mx)
-        min_t_dev = torch.minimum(min_t_dev, mn)
-        parts.append(part)
-    imgs = parts[0] if len(parts) == 1 else _Images(*map(torch.cat, zip(*parts)))
-    del parts
-    if stats:
-        _sync(dev)
-        timings["trace_bin"] = time.perf_counter() - t_start
-    channels, info = _finish_render(
-        hist, imgs, float(max_t_dev), float(min_t_dev), config, spec, dev,
-        length=length, remove_direct=config.remove_direct,
-        timings=timings if stats else None,
-    )
-    info.update({
-        "sweeps": sweep_count(config.reflections) * -(-n // chunk),
-        "ray_chunk": chunk,
-        "chunks": -(-n // chunk),
-        "bin_mode": bin_mode,
-    })
-    if stats:
-        total = time.perf_counter() - t_start
-        timings["total"] = total
-        pairs = sweep_pair_tests(n, soup.num_padded, config.reflections)
-        info["timings"] = timings
-        info["pair_tests_issued"] = pairs
-        info["pair_tests_per_s"] = pairs / max(timings["trace_bin"], 1e-9)
-        info["ray_bounces_per_s"] = n * config.reflections / max(total, 1e-9)
-        info["memory_estimate_bytes"] = render_bytes(chunk, config.reflections, nblocks)
-        if pair_stats is not None:
-            # executed pair tests by sweep kind, one pull per render
-            executed = dict(zip(SWEEP_KINDS, pair_stats.tolist()))
-            info["pair_tests_executed"] = executed
-            info["pair_tests_executed_total"] = sum(executed.values())
-            info["pair_tests_executed_per_s"] = info[
-                "pair_tests_executed_total"
-            ] / max(timings["trace_bin"], 1e-9)
-    return channels, info
+
+        hist = None
+        max_t_dev = torch.zeros((), device=dev)
+        min_t_dev = torch.tensor(float("inf"), device=dev)
+        parts = []
+        for first in range(0, n, chunk):
+            hist, mx, mn, part = _fused_trace_bin(
+                soup,
+                config.mic_position,
+                config.source_position,
+                directions[first : first + chunk],
+                spec,
+                nreflections=config.reflections,
+                length=length,
+                sample_rate=config.sample_rate,
+                impl=impl,
+                include_diffuse=include_diffuse,
+                resort=resort,
+                bin_mode=bin_mode,
+                init_hist=hist,
+                stats=pair_stats,
+            )
+            max_t_dev = torch.maximum(max_t_dev, mx)
+            min_t_dev = torch.minimum(min_t_dev, mn)
+            parts.append(part)
+        imgs = parts[0] if len(parts) == 1 else _Images(*map(torch.cat, zip(*parts)))
+        del parts
+        if stats:
+            _sync(dev)
+            timings["trace_bin"] = time.perf_counter() - t_start
+        channels, info = _finish_render(
+            hist, imgs, float(max_t_dev), float(min_t_dev), config, spec, dev,
+            length=length, remove_direct=config.remove_direct,
+            timings=timings if stats else None,
+        )
+        info.update({
+            "sweeps": sweep_count(config.reflections) * -(-n // chunk),
+            "ray_chunk": chunk,
+            "chunks": -(-n // chunk),
+            "bin_mode": bin_mode,
+        })
+        if stats:
+            total = time.perf_counter() - t_start
+            timings["total"] = total
+            pairs = sweep_pair_tests(n, soup.num_padded, config.reflections)
+            info["timings"] = timings
+            info["pair_tests_issued"] = pairs
+            info["pair_tests_per_s"] = pairs / max(timings["trace_bin"], 1e-9)
+            info["ray_bounces_per_s"] = n * config.reflections / max(total, 1e-9)
+            info["memory_estimate_bytes"] = render_bytes(chunk, config.reflections, nblocks)
+            if pair_stats is not None:
+                # executed pair tests by sweep kind, one pull per render
+                executed = dict(zip(SWEEP_KINDS, pair_stats.tolist()))
+                info["pair_tests_executed"] = executed
+                info["pair_tests_executed_total"] = sum(executed.values())
+                info["pair_tests_executed_per_s"] = info[
+                    "pair_tests_executed_total"
+                ] / max(timings["trace_bin"], 1e-9)
+        return channels, info
 
 
 def _finish_render(hist, imgs: _Images, max_t: float, min_t: float,

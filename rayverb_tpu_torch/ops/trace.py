@@ -212,6 +212,16 @@ def _shadow_rows(mic, intersection, alive, mag, pair=None):
     return origins, dirs, bounds, decide, inv_perm, mag_eff
 
 
+def _sorted_bounce_sweep(sweep, soup, key, origins, dirs, t_max, kinds):
+    """A bounce sweep of rows sorted by ``key`` (stable; a sweep-local
+    permutation), its Hit back in row order. ``sweep`` is _trace_impl's.
+    The JAX trace's other bounce schedules (its horizon split) replace
+    this function in trace_variants, which is why it takes ``soup``."""
+    perm = torch.argsort(key, stable=True)
+    hs = sweep(origins[perm], dirs[perm], t_max[perm], kinds=kinds)
+    return _gather_hit(hs, _inv_permutation(perm))
+
+
 class _RayState(NamedTuple):
     pos: torch.Tensor       # (N, 3)
     dir: torch.Tensor       # (N, 3)
@@ -302,11 +312,8 @@ def _trace_impl(
         kinds = ((_BOUNCE, 0, n),)
         if not (resort and do_sort):
             return sweep(o, dirv, b, kinds=kinds)
-        perm = torch.argsort(
-            _ray_sort_key(pos, dirv, lo_b, inv_span), stable=True
-        )
-        hs = sweep(o[perm], dirv[perm], b[perm], kinds=kinds)
-        return _gather_hit(hs, _inv_permutation(perm))
+        key = _ray_sort_key(pos, dirv, lo_b, inv_span)
+        return _sorted_bounce_sweep(sweep, soup, key, o, dirv, b, kinds)
 
     def diffuse_impulse(state, hit, vis, t_safe):
         """Per-bounce diffuse Impulse fields (kernel.cpp:459-501)."""

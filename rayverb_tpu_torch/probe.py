@@ -1,7 +1,7 @@
 """Sweep probe: the north star at a chosen ray count, executed pairs on.
 
     python -m rayverb_tpu_torch.probe [--rays 65536] [--chunk N] [--runs 1]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--profile] [--variant NAME]
 
 Renders the north-star workload (NORTH_STAR: the 101,568-triangle hall of
 scripts/gen_hall.py, generated into a temporary directory, stereo HRTF, 16
@@ -13,6 +13,13 @@ the kernels), the best warm wall and its trace_bin and finalize phases,
 the executed pair tests by sweep kind in G, and every RAYVERB_* variable
 of the environment, so that each variant of a knob runs in a fresh
 process. --chunk sets the rays per chunk (default: chosen by memory).
+--variant renders under one of the trace's other sweep schedules
+(trace_variants.VARIANTS; ``probe_turns`` runs them in turns), and a
+horizon split adds the live rows of each of its two passes. On a CUDA
+device the line also holds the peak device memory of the warm runs, and
+with --profile the device breakdown of one more warm render without the
+counters (profile_render.device_breakdown: the sweep and order kernels'
+launches and device ms, device busy time).
 """
 
 from __future__ import annotations
@@ -65,27 +72,50 @@ def hall_scene(tmp: str, triangles: int = HALL_TRIANGLES):
 
 
 def probe(scene, config, *, runs: int = 1, chunk=None, device=None,
-          seed: int = 1234) -> dict:
+          seed: int = 1234, profile: bool = False, variant: str = "default") -> dict:
     """Render ``config`` on ``scene`` once cold and ``runs`` times warm
-    with stats; returns the probe's record (module docstring)."""
+    with stats, under the trace variant ``variant``
+    (trace_variants.applied); returns the probe's record (module
+    docstring)."""
+    import torch
+
     from .ops.render import render_fused
+    from .trace_variants import applied
     from .utils.directions import random_directions
 
     dirs = random_directions(config.rays, seed=seed)
-    t0 = time.perf_counter()
-    render_fused(scene, config, dirs, ray_chunk=chunk, device=device, stats=True)
-    cold = time.perf_counter() - t0
-    best = None
-    for _ in range(runs):
+    cuda = torch.device("cuda" if device is None else device).type == "cuda"
+    live = []
+
+    def render(stats=True):
+        return render_fused(scene, config, dirs, ray_chunk=chunk, device=device,
+                            stats=stats)
+
+    with applied(variant, live):
         t0 = time.perf_counter()
-        _, info = render_fused(scene, config, dirs, ray_chunk=chunk, device=device,
-                               stats=True)
-        wall = time.perf_counter() - t0
-        if best is None or wall < best[0]:
-            best = (wall, info)
+        render()
+        cold = time.perf_counter() - t0
+        # the cold render's rows of each horizon split: pass 1's live rows,
+        # pass 2's (the rays that pass 1 left unresolved)
+        split_rows = [[int(a), int(u)] for a, u in live]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        best = None
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            _, info = render()
+            wall = time.perf_counter() - t0
+            if best is None or wall < best[0]:
+                best = (wall, info)
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        if profile:
+            from .profile_render import device_breakdown
+
+            breakdown = device_breakdown(lambda: render(stats=False))
     wall, info = best
     out = {
         "rays": config.rays,
+        "variant": variant,
         "device": info["device"],
         "env": {k: v for k, v in os.environ.items()
                 if k.startswith("RAYVERB_") and k != "RAYVERB_SWEEP_STATS"},
@@ -94,23 +124,38 @@ def probe(scene, config, *, runs: int = 1, chunk=None, device=None,
         "trace_bin_s": info["timings"]["trace_bin"],
         "finalize_s": info["timings"].get("finalize", 0.0),
         "ray_chunk": info["ray_chunk"],
+        "memory_estimate_bytes": info["memory_estimate_bytes"],
     }
+    if split_rows:
+        out["horizon_split_rows"] = split_rows
+    if cuda:
+        out["peak_memory_bytes"] = peak
     if "pair_tests_executed" in info:
         out["executed_G"] = {k: v / 1e9 for k, v in info["pair_tests_executed"].items()}
         out["executed_total_G"] = info["pair_tests_executed_total"] / 1e9
+    if profile:
+        out["profile"] = breakdown
     return out
 
 
 def main(argv=None) -> int:
+    from .trace_variants import VARIANTS
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rays", type=int, default=65536)
     ap.add_argument("--chunk", type=int, default=None,
                     help="rays per chunk (default: chosen by memory)")
     ap.add_argument("--runs", type=int, default=1, help="warm runs to time")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--profile", action="store_true",
+                    help="add the device breakdown of one more warm render (cuda)")
+    ap.add_argument("--variant", choices=VARIANTS, default="default",
+                    help="the trace's sweep schedule (trace_variants)")
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be >= 1")
+    if args.profile and args.device != "cuda":
+        ap.error("--profile needs --device cuda")
     from .config.schema import parse_config
     from .device import resolve_device
 
@@ -123,7 +168,8 @@ def main(argv=None) -> int:
     config = parse_config(json.dumps(dict(NORTH_STAR, rays=args.rays)))
     with tempfile.TemporaryDirectory(prefix="rayverb_probe_") as tmp:
         scene = hall_scene(tmp)
-    out = probe(scene, config, runs=args.runs, chunk=args.chunk, device=dev)
+    out = probe(scene, config, runs=args.runs, chunk=args.chunk, device=dev,
+                profile=args.profile, variant=args.variant)
     if dev.type == "cuda":
         from .device import card_name_and_power
 

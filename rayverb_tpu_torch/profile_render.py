@@ -21,6 +21,8 @@ import re
 import sys
 import time
 
+from .utils.profiling import profiler
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VAULT = (
     os.path.join(_REPO, "assets", "configs", "vault.json"),
@@ -49,9 +51,8 @@ def device_breakdown(fn) -> dict:
     the closest-hit kernels' launches and time, and the device's busy share
     (union of kernel intervals over the wall)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
