@@ -765,12 +765,11 @@ def _phase_hrtf_render(ph, dev):
     scene = load_scene(HRTF_VAULT[1], HRTF_VAULT[2])
     dirs = random_directions(cfg.rays, seed=cfg.seed)
     out = {}
-    with mock.patch.dict(os.environ, RAYVERB_SWEEP_STATS="1"):
-        for impl in ("cuda", "plain"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ir, info = render_fused(scene, cfg, dirs, impl=impl, device=dev, stats=True)
-            out[impl] = (ir, time.perf_counter() - t0, info)
+    for impl in ("cuda", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ir, info = render_fused(scene, cfg, dirs, impl=impl, device=dev, stats=True)
+        out[impl] = (ir, time.perf_counter() - t0, info)
     a, b = out["cuda"][0], out["plain"][0]
     ea = out["cuda"][2]["pair_tests_executed"]
     eb = out["plain"][2]["pair_tests_executed"]
@@ -989,45 +988,44 @@ def _phase_north_star(ph, dev, scene, hall_loads):
     cfg = parse_config(json.dumps(NORTH_STAR))
     dirs = random_directions(cfg.rays, seed=0)
     runs = []
-    with mock.patch.dict(os.environ, RAYVERB_SWEEP_STATS="1"):
-        for label in ("cold", "warm"):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            intersect_cuda.launches = 0
-            intersect_cuda.order_launches = 0
-            biquad_cuda.launches = 0
-            t0 = time.perf_counter()
-            ir, info = render_fused(scene, cfg, dirs, device=dev, stats=True)
-            wall = time.perf_counter() - t0
-            biquad_launches = biquad_cuda.launches
-            warm_ir = ir
-            run = {
-                "run": label, "wall_s": wall,
-                "trace_bin_s": info["timings"]["trace_bin"],
-                "finalize_s": info["timings"]["finalize"],
-                "timings": info["timings"],
-                "ray_chunk": info["ray_chunk"], "chunks": info["chunks"],
-                "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
-                "memory_estimate_bytes": info["memory_estimate_bytes"],
-                "pair_tests_executed": info["pair_tests_executed"],
-                "pair_tests_executed_total": info["pair_tests_executed_total"],
-                "pair_tests_issued": info["pair_tests_issued"],
-                "ray_bounces_per_s": info["ray_bounces_per_s"],
-                "launches": intersect_cuda.launches,
-                "order_launches": intersect_cuda.order_launches,
-                "biquad_launches": biquad_launches,
-                "filter_method": info["filter_method"],
-                "shape": list(ir.shape),
-            }
-            runs.append(run)
-            _emit({"north_star_run": run})
-            if ir.shape[0] != 2 or not np.all(np.isfinite(ir)) or np.abs(ir).max() == 0:
-                raise AssertionError(f"north-star IR is not stereo, finite and non-silent: {run}")
-            if run["launches"] == 0 or run["order_launches"] == 0:
-                raise AssertionError(f"north star ran no kernel: {run}")
-            # its finalize is the fft bank: the biquad kernel has no launch
-            if run["filter_method"] != "fft" or run["biquad_launches"] != 0:
-                raise AssertionError(f"north star's finalize is not the fft bank: {run}")
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        intersect_cuda.launches = 0
+        intersect_cuda.order_launches = 0
+        biquad_cuda.launches = 0
+        t0 = time.perf_counter()
+        ir, info = render_fused(scene, cfg, dirs, device=dev, stats=True)
+        wall = time.perf_counter() - t0
+        biquad_launches = biquad_cuda.launches
+        warm_ir = ir
+        run = {
+            "run": label, "wall_s": wall,
+            "trace_bin_s": info["timings"]["trace_bin"],
+            "finalize_s": info["timings"]["finalize"],
+            "timings": info["timings"],
+            "ray_chunk": info["ray_chunk"], "chunks": info["chunks"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+            "memory_estimate_bytes": info["memory_estimate_bytes"],
+            "pair_tests_executed": info["pair_tests_executed"],
+            "pair_tests_executed_total": info["pair_tests_executed_total"],
+            "pair_tests_issued": info["pair_tests_issued"],
+            "ray_bounces_per_s": info["ray_bounces_per_s"],
+            "launches": intersect_cuda.launches,
+            "order_launches": intersect_cuda.order_launches,
+            "biquad_launches": biquad_launches,
+            "filter_method": info["filter_method"],
+            "shape": list(ir.shape),
+        }
+        runs.append(run)
+        _emit({"north_star_run": run})
+        if ir.shape[0] != 2 or not np.all(np.isfinite(ir)) or np.abs(ir).max() == 0:
+            raise AssertionError(f"north-star IR is not stereo, finite and non-silent: {run}")
+        if run["launches"] == 0 or run["order_launches"] == 0:
+            raise AssertionError(f"north star ran no kernel: {run}")
+        # its finalize is the fft bank: the biquad kernel has no launch
+        if run["filter_method"] != "fft" or run["biquad_launches"] != 0:
+            raise AssertionError(f"north star's finalize is not the fft bank: {run}")
     # the order kernel's time per launch at this table: the 1M primary rays
     soup = soup_from_scene(scene, device=dev)
     m = cfg.rays
@@ -1711,17 +1709,16 @@ def _datagen_run(label, scene, cfg, sources, mics, dirs, dev, **kw):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    with mock.patch.dict(os.environ, RAYVERB_SWEEP_STATS="1"):
-        intersect_cuda.launches = 0
-        intersect_cuda.order_launches = 0
-        biquad_cuda.launches = 0
-        t0 = time.perf_counter()
-        irs, contents, info = render_irs_batched(scene, cfg, sources, mics, dirs, device=dev,
-                                                 stats=True, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = (intersect_cuda.launches, intersect_cuda.order_launches,
-                    biquad_cuda.launches)
+    intersect_cuda.launches = 0
+    intersect_cuda.order_launches = 0
+    biquad_cuda.launches = 0
+    t0 = time.perf_counter()
+    irs, contents, info = render_irs_batched(scene, cfg, sources, mics, dirs, device=dev,
+                                             stats=True, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (intersect_cuda.launches, intersect_cuda.order_launches,
+                biquad_cuda.launches)
     run = {"run": label, "wall_s": wall, "pairs_per_s": len(sources) / wall,
            "ray_bounces_per_s": dirs.shape[0] * dirs.shape[1] * cfg.reflections / wall,
            "launches": launches[0], "order_launches": launches[1],
@@ -2109,24 +2106,23 @@ def _phase_sharded(ph, dev, scene, single_ir, tmp):
         expected = sweep_count(cfg.reflections)
         peak = float(np.abs(single_ir).max())
         runs = []
-        with mock.patch.dict(os.environ, RAYVERB_SWEEP_STATS="1"):
-            for label in ("cold", "warm"):
-                (ir, info), run = _counted(lambda: render_fused_sharded(
-                    scene, cfg, dirs, mesh=mesh, device=dev, stats=True))
-                diff = float(np.abs(ir - single_ir).max()) if ir.shape == single_ir.shape \
-                    else float("inf")
-                run.update(run=label, shape=list(ir.shape),
-                           bit_identical_to_render_fused=bool(np.array_equal(ir, single_ir)),
-                           max_abs_diff_over_peak=diff / peak, info=info)
-                runs.append(run)
-                _emit({"sharded_run": run})
-                if not diff <= 1e-6 * peak:
-                    raise AssertionError(f"the sharded north star differs from render_fused: {run}")
-                if (run["launches"] != expected * sum(info["segments"])
-                        or run["order_launches"] != run["launches"]
-                        or info["sweeps"] != run["launches"] or run["biquad_launches"] != 0):
-                    raise AssertionError(f"the sharded north star did not run every sweep "
-                                         f"through the order and sweep kernels: {run}")
+        for label in ("cold", "warm"):
+            (ir, info), run = _counted(lambda: render_fused_sharded(
+                scene, cfg, dirs, mesh=mesh, device=dev, stats=True))
+            diff = float(np.abs(ir - single_ir).max()) if ir.shape == single_ir.shape \
+                else float("inf")
+            run.update(run=label, shape=list(ir.shape),
+                       bit_identical_to_render_fused=bool(np.array_equal(ir, single_ir)),
+                       max_abs_diff_over_peak=diff / peak, info=info)
+            runs.append(run)
+            _emit({"sharded_run": run})
+            if not diff <= 1e-6 * peak:
+                raise AssertionError(f"the sharded north star differs from render_fused: {run}")
+            if (run["launches"] != expected * sum(info["segments"])
+                    or run["order_launches"] != run["launches"]
+                    or info["sweeps"] != run["launches"] or run["biquad_launches"] != 0):
+                raise AssertionError(f"the sharded north star did not run every sweep "
+                                     f"through the order and sweep kernels: {run}")
         # warm walls in turns, one pass each: render_fused, sharded, sharded,
         # render_fused
         turns = []
@@ -2285,8 +2281,7 @@ def _phase_trace_variants(ph, dev, scene, north_ir):
     dirs = random_directions(cfg.rays, seed=0)
     soup = soup_from_scene(scene, device=dev)
     live = []
-    with trace_variants.applied(NORTH_STAR_VARIANT, live), \
-            mock.patch.dict(os.environ, RAYVERB_SWEEP_STATS="1"):
+    with trace_variants.applied(NORTH_STAR_VARIANT, live):
         (ir, info), north = _counted(lambda: render.render_fused(
             scene, cfg, dirs, device=dev, soup=soup, stats=True))
     expected = trace_variants.sweep_count(NORTH_STAR_VARIANT, cfg.reflections) * info["chunks"]

@@ -13,9 +13,11 @@ modular`` (pipeline.render) runs the reference's stages one by one, with
 the causal time-domain scan filters by default. ``--save-raw``,
 ``--from-raw`` and ``--dump-paths`` imply the modular pipeline, as in the
 JAX CLI. Speaker and HRTF configs, on the GPU unless ``--device cpu`` is
-given. With ``--stats`` the phase walls are printed, and with
-RAYVERB_SWEEP_STATS set the fused render's executed pair tests by sweep
-kind too. Errors: message to stderr, exit code 1.
+given. With ``--stats`` the phase walls are printed, then the render's
+span table (calls, total and self seconds by ``rv.*`` span,
+utils/profiling.py) and its counters: closest-hit calls and rows, kernel
+launches, and the executed pair tests by sweep kind. Errors: message to
+stderr, exit code 1.
 """
 
 from __future__ import annotations
@@ -126,7 +128,7 @@ def main(argv=None) -> int:
         timer = None
         if args.stats and not use_fused:
             from .device import resolve_device
-            from .utils.diagnostics import PhaseTimer
+            from .utils.profiling import PhaseTimer
 
             timer = PhaseTimer(resolve_device(args.device))
         if args.from_raw:
@@ -192,29 +194,19 @@ def main(argv=None) -> int:
                 f"  device: {device}",
                 file=sys.stderr,
             )
+            from .utils.profiling import report
+
             if not use_fused:
                 print(f"phases [{timer.report()}]", file=sys.stderr)
+                timings = timer.timings()
             else:
-                tm = info["timings"]
+                timings = info["timings"]
                 phases = "  ".join(
-                    f"{k}: {v:.3f}s" for k, v in tm.items() if k != "total"
+                    f"{k}: {v:.3f}s" for k, v in timings.items()
+                    if isinstance(v, float) and k != "total"
                 )
-                print(
-                    f"phases [{phases}]  "
-                    f"pair-tests: {info['pair_tests_issued']:.3g} issued, "
-                    f"{info['pair_tests_per_s'] / 1e9:.2f} G/s",
-                    file=sys.stderr,
-                )
-                if "pair_tests_executed" in info:
-                    kinds = "  ".join(
-                        f"{k}: {v}" for k, v in info["pair_tests_executed"].items()
-                    )
-                    print(
-                        f"pair-tests executed: {info['pair_tests_executed_total']} "
-                        f"[{kinds}]  "
-                        f"{info['pair_tests_executed_per_s'] / 1e9:.2f} G/s",
-                        file=sys.stderr,
-                    )
+                print(f"phases [{phases}]", file=sys.stderr)
+            print("\n".join(report(timings)), file=sys.stderr)
     except (ValueError, RuntimeError, OSError) as e:
         print("encountered runtime error:", file=sys.stderr)
         print(e, file=sys.stderr)

@@ -84,7 +84,12 @@
 //      rest of the test run only for rows that pass divide_may_accept, an
 //      exact pre-test that never rejects a pair the full test accepts.
 //   6. Executed pair tests (kTile per block a ray takes part in, per slice)
-//      are counted per ray and added with one atomicAdd per ray and slice.
+//      are counted per ray. The epilogue adds them by row kind into a
+//      (4,) accumulator, the sweep's row ranges (at most kRanges, each
+//      with its kind) given as an argument: a warp sums each kind's rows
+//      (redux.sync) and adds the sum with one atomicAdd per kind. Where
+//      the caller asks for per-ray counts, they are added with one
+//      atomicAdd per ray and slice.
 //
 // Arithmetic is written operation for operation as closest_hit_plain does
 // it, the file is built with --fmad=false (no FMA contraction) and IEEE
@@ -113,6 +118,16 @@ constexpr float kEps = 1e-4f;     // rayverb_tpu_torch.constants.EPSILON
 constexpr float kSlack = 1.0f + 0x1p-20f;
 // groups (warps) of an order thread block, at most
 constexpr int kOrderWarpsMax = 8;
+// row kinds of the executed-pair accumulator, and row ranges of a sweep
+constexpr int kKinds = 4;
+constexpr int kRanges = 3;
+
+// rows [start[r], end[r]) of a sweep count as kind[r] (-1: no range)
+struct KindRanges {
+  int start[kRanges];
+  int end[kRanges];
+  int kind[kRanges];
+};
 
 __device__ __forceinline__ void slab_axis(float o, float dv, float iv,
                                           float lo, float hi, float& tn,
@@ -198,6 +213,8 @@ closest_hit_sweep(const float* __restrict__ origins,
                   int slices, unsigned long long* __restrict__ keys,
                   unsigned int* __restrict__ arrivals,
                   unsigned long long* __restrict__ executed,
+                  unsigned long long* __restrict__ kind_sums,
+                  const KindRanges ranges,
                   float* __restrict__ hit_t,
                   long long* __restrict__ hit_index,
                   bool* __restrict__ hit_found) {
@@ -310,6 +327,22 @@ closest_hit_sweep(const float* __restrict__ origins,
   const bool writer = part == 0 && in_range;
   if (writer && executed != nullptr && count != 0) {
     atomicAdd(executed + ray, count);
+  }
+  if (kind_sums != nullptr) {
+    // every thread of the warp reaches here; a warp's 8 rays sum below
+    // 8 x nblocks x kTile, which 32 bits hold for any table that fits
+    // the card
+    int kind = -1;
+    for (int r = 0; r < kRanges; ++r) {
+      if (ray >= ranges.start[r] && ray < ranges.end[r]) kind = ranges.kind[r];
+    }
+    const unsigned int mine = writer && kind >= 0 ? (unsigned int)count : 0u;
+    for (int k = 0; k < kKinds; ++k) {
+      const unsigned int sum = __reduce_add_sync(0xFFFFFFFFu, kind == k ? mine : 0u);
+      if (threadIdx.x % 32 == 0 && sum != 0) {
+        atomicAdd(kind_sums + k, (unsigned long long)sum);
+      }
+    }
   }
   // this slice's key; a slice without a hit leaves all-ones (the seed's
   // minimum then gives the miss). The seed's bound is read again here
@@ -570,28 +603,41 @@ extern "C" int rv_block_order(const void* origins, const void* dirs,
 // int32; keys (m,) 64-bit all-ones and arrivals (ceil(m / 32),) 32-bit
 // zeros, the merge's scratch for slices > 1, which the launch leaves as
 // it found them (null for one slice); executed (m,) int64 added to (or
-// null: no counters); the Hit: hit_t (m,) float32, hit_index (m,) int64,
-// hit_found (m,) bool. Returns cudaErrorInvalidValue without the scratch
-// where slices > 1, else enqueues one launch on `stream` and returns the
-// first CUDA error of the enqueue (0 if none).
+// null: no per-ray counters); kind_sums (4,) int64 added to by row kind
+// (or null: no such counters) over the row ranges `ranges`, a host array
+// of kRanges (start, end, kind) triples (kind -1: unused; null: none);
+// the Hit: hit_t (m,) float32, hit_index (m,) int64, hit_found (m,)
+// bool. Returns cudaErrorInvalidValue without the scratch where slices >
+// 1 or for a kind outside [0, 4), else enqueues one launch on `stream`
+// and returns the first CUDA error of the enqueue (0 if none).
 extern "C" int rv_closest_hit(const void* origins, const void* dirs,
                               const void* t_max, const void* t_decide,
                               const void* packed, const void* aabb,
                               const void* order, int m, int nblocks,
                               int slices, void* keys, void* arrivals,
-                              void* executed, void* hit_t, void* hit_index,
-                              void* hit_found, void* stream) {
+                              void* executed, void* kind_sums,
+                              const int* ranges, void* hit_t,
+                              void* hit_index, void* hit_found,
+                              void* stream) {
   if (m <= 0) return 0;
   if (slices < 1 || slices > nblocks ||
       (slices > 1 && (keys == nullptr || arrivals == nullptr))) {
     return (int)cudaErrorInvalidValue;
+  }
+  KindRanges kr;
+  for (int r = 0; r < kRanges; ++r) {
+    kr.start[r] = ranges != nullptr ? ranges[3 * r] : 0;
+    kr.end[r] = ranges != nullptr ? ranges[3 * r + 1] : 0;
+    kr.kind[r] = ranges != nullptr ? ranges[3 * r + 2] : -1;
+    if (kr.kind[r] >= kKinds) return (int)cudaErrorInvalidValue;
   }
   dim3 grid((m + kRays - 1) / kRays, slices);
   closest_hit_sweep<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)origins, (const float*)dirs, (const float*)t_max,
       (const float*)t_decide, (const float4*)packed, (const float*)aabb,
       (const int*)order, m, nblocks, slices, (unsigned long long*)keys,
-      (unsigned int*)arrivals, (unsigned long long*)executed, (float*)hit_t,
+      (unsigned int*)arrivals, (unsigned long long*)executed,
+      (unsigned long long*)kind_sums, kr, (float*)hit_t,
       (long long*)hit_index, (bool*)hit_found);
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,8 @@ import tempfile
 import threading
 import time
 
+from .utils import profiling
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -94,29 +96,40 @@ def _load(name: str, paths, command, timeout: int) -> ctypes.CDLL:
     with lock:
         if name in _libs:
             return _libs[name]
-        out = os.path.join(BUILD_DIR, f"{name}-{_key(paths, command[1:])}.so")
-        t0 = time.perf_counter()
-        log = ""
-        if not os.path.isfile(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [*command, "-o", tmp, *paths]
-            try:
-                proc = subprocess.run(
-                    cmd, capture_output=True, text=True, timeout=timeout,
-                )
-            except (OSError, subprocess.TimeoutExpired) as e:
-                os.unlink(tmp)
-                raise RuntimeError(f"{command[0]} failed building {name}: {e}") from e
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"{command[0]} failed building {name}:\n{log}")
-            os.replace(tmp, out)  # atomic: no half-written library is seen
-        lib = ctypes.CDLL(out)
-        build_info[name] = {
-            "seconds": time.perf_counter() - t0, "log": log, "path": out,
-        }
-        _libs[name] = lib
-        return lib
+        # a one-time span, named in the first call's tree and the process's
+        # store (utils.profiling)
+        with profiling.once("rv.load_library", name=name) as span:
+            _libs[name], built = _build_and_load(name, paths, command, timeout)
+            span.set(built=built)
+        return _libs[name]
+
+
+def _build_and_load(name: str, paths, command, timeout: int):
+    """Build the library unless its keyed file is there, and load it:
+    (the library, whether it was built)."""
+    out = os.path.join(BUILD_DIR, f"{name}-{_key(paths, command[1:])}.so")
+    t0 = time.perf_counter()
+    log = ""
+    built = not os.path.isfile(out)
+    if built:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [*command, "-o", tmp, *paths]
+        try:
+            proc = subprocess.run(
+                cmd, capture_output=True, text=True, timeout=timeout,
+            )
+        except (OSError, subprocess.TimeoutExpired) as e:
+            os.unlink(tmp)
+            raise RuntimeError(f"{command[0]} failed building {name}: {e}") from e
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"{command[0]} failed building {name}:\n{log}")
+        os.replace(tmp, out)  # atomic: no half-written library is seen
+    lib = ctypes.CDLL(out)
+    build_info[name] = {
+        "seconds": time.perf_counter() - t0, "log": log, "path": out,
+    }
+    return lib, built

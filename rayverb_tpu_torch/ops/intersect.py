@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..constants import EPSILON
+from ..utils import profiling
 from ..utils.directions import _morton3
 
 # Triangle rows per sweep block and per block AABB (the JAX package's
@@ -452,7 +453,7 @@ def check_schedule(order, slices, m, nblocks):
 
 def closest_hit_plain(
     origins, dirs, packed, block_aabb, t_max, t_decide, order, slices, *,
-    with_stats=False,
+    with_stats=False, pair_sums=None, kinds=(),
 ):
     """The kernel's plain version: raw (best_t (M,) f32, best_i (M,) i32,
     -1 = none) for rays (M, 3) against the packed table, with per-ray
@@ -470,7 +471,11 @@ def closest_hit_plain(
     swept in chunks, each group's rays against the one block they share.
 
     with_stats=True also returns (M,) int64 executed pair tests per ray
-    (SWEEP_BLOCK per block and slice the ray took part in)."""
+    (SWEEP_BLOCK per block and slice the ray took part in). With
+    ``pair_sums`` (a (4,) int64 tensor) those of the rows [start, end) of
+    each (kind, start, end) of ``kinds`` are added into pair_sums[kind],
+    as the kernel's epilogue adds them."""
+    count_rows = with_stats or pair_sums is not None
     m = origins.shape[0]
     nb = block_aabb.shape[0]
     blk = packed.shape[0] // nb
@@ -508,7 +513,7 @@ def closest_hit_plain(
             & (bt >= t_decide)
             & _slab_pass(o, d, inv, block_aabb[blocks][:, :, None, :], bt)
         )  # (S', groups, SWEEP_RAYS)
-        if with_stats:
+        if count_rows:
             executed += blk * active.sum(dim=0)
         ks, gs = torch.nonzero(active.any(dim=-1), as_tuple=True)
         for c0 in range(0, gs.numel(), chunk):
@@ -530,8 +535,12 @@ def closest_hit_plain(
             best_i[s, g] = torch.where(better, cand, bi_f)
     keys = pack_keys(best_t.view(slices, -1), best_i.view(slices, -1))
     out_t, out_i = unpack_keys(torch.amin(keys[:, :m], dim=0))
+    executed = executed.view(-1)[:m]
+    if pair_sums is not None:
+        for kind, start, end in kinds:
+            pair_sums[kind] += executed[start:end].sum()
     if with_stats:
-        return out_t, out_i, executed.view(-1)[:m]
+        return out_t, out_i, executed
     return out_t, out_i
 
 
@@ -578,6 +587,8 @@ def closest_hit(
     t_max=None,
     t_decide=None,
     with_stats: bool = False,
+    pair_sums=None,
+    kinds=(),
 ):
     """Closest hit of rays (M, 3) against the scene.
 
@@ -591,37 +602,53 @@ def closest_hit(
     the closest; pass it only for rows whose consumer reads the verdict.
 
     With the kernel a call is two launches, the order kernel and the sweep
-    (which writes the Hit), and a zero-fill of the counters with stats.
+    (which writes the Hit and adds the counters).
 
-    with_stats=True returns (Hit, executed pair tests per ray)."""
+    with_stats=True returns (Hit, executed pair tests per ray). pair_sums
+    (a (4,) int64 tensor, profiling.pair_sums) and ``kinds``: the executed
+    pair tests of the rows [start, end) of each (kind, start, end) are
+    added into pair_sums[kind] (closest_hit_plain).
+
+    A call is the span rv.closest_hit (attrs rows, kinds) with the spans
+    rv.block_order and rv.sweep, the host side of the two launches, and
+    adds to the counters closest_hit.calls and closest_hit.rows."""
     if impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"impl must be 'auto', 'cuda' or 'plain', not {impl!r}")
-    origins = origins.to(torch.float32).contiguous()
-    dirs = dirs.to(torch.float32).contiguous()
-    decided = t_decide is not None
-    if impl == "cuda" or (impl == "auto" and origins.is_cuda):
-        from .intersect_cuda import closest_hit_cuda
+    m = origins.shape[0]
+    profiling.count("closest_hit.calls")
+    profiling.count("closest_hit.rows", m)
+    with profiling.span("rv.closest_hit", rows=m, kinds=kinds):
+        origins = origins.to(torch.float32).contiguous()
+        dirs = dirs.to(torch.float32).contiguous()
+        decided = t_decide is not None
+        if impl == "cuda" or (impl == "auto" and origins.is_cuda):
+            from .intersect_cuda import closest_hit_cuda
 
-        # an absent bound stays absent: the kernels read +inf or 0
-        t_max, t_decide = (
-            None if x is None else x.to(torch.float32).contiguous()
-            for x in (t_max, t_decide)
-        )
-        order, slices = sweep_schedule(
-            origins, dirs, t_max, soup.block_aabb, decided
-        )
-        return closest_hit_cuda(
-            origins, dirs, soup.packed, soup.block_aabb, t_max, t_decide,
-            order, slices, with_stats=with_stats,
-        )
-    t_max, t_decide = _bounds(origins.shape[0], t_max, t_decide, origins.device)
-    order, slices = sweep_schedule(origins, dirs, t_max, soup.block_aabb, decided)
-    out = closest_hit_plain(
-        origins, dirs, soup.packed, soup.block_aabb, t_max, t_decide, order,
-        slices, with_stats=with_stats,
-    )
-    hit = hit_from_raw(out[0], out[1])
-    return (hit, out[2]) if with_stats else hit
+            # an absent bound stays absent: the kernels read +inf or 0
+            t_max, t_decide = (
+                None if x is None else x.to(torch.float32).contiguous()
+                for x in (t_max, t_decide)
+            )
+            with profiling.span("rv.block_order"):
+                order, slices = sweep_schedule(
+                    origins, dirs, t_max, soup.block_aabb, decided
+                )
+            with profiling.span("rv.sweep"):
+                return closest_hit_cuda(
+                    origins, dirs, soup.packed, soup.block_aabb, t_max, t_decide,
+                    order, slices, with_stats=with_stats, pair_sums=pair_sums,
+                    kinds=kinds,
+                )
+        t_max, t_decide = _bounds(m, t_max, t_decide, origins.device)
+        with profiling.span("rv.block_order"):
+            order, slices = sweep_schedule(origins, dirs, t_max, soup.block_aabb, decided)
+        with profiling.span("rv.sweep"):
+            out = closest_hit_plain(
+                origins, dirs, soup.packed, soup.block_aabb, t_max, t_decide, order,
+                slices, with_stats=with_stats, pair_sums=pair_sums, kinds=kinds,
+            )
+            hit = hit_from_raw(out[0], out[1])
+        return (hit, out[2]) if with_stats else hit
 
 
 def visible(begin, point, soup: TriangleSoup, *, impl: str = "auto"):

@@ -38,7 +38,7 @@ def _kernel():
         sweep = lib.rv_closest_hit
         sweep.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p
-        ] * 7
+        ] * 9
         sweep.restype = ctypes.c_int
         order = lib.rv_block_order
         order.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
@@ -186,9 +186,27 @@ def _scratch(dev, stream, m):
     return keys, arrivals
 
 
+# row ranges of one sweep that the kernel splits its executed pair tests
+# at (csrc/closest_hit.cu kRanges)
+KIND_RANGES = 3
+
+
+def _kind_ranges(kinds, m):
+    """The kernel's host array of KIND_RANGES (start, end, kind) triples."""
+    if len(kinds) > KIND_RANGES:
+        raise ValueError(f"at most {KIND_RANGES} row ranges, got {len(kinds)}")
+    flat = []
+    for kind, start, end in kinds:
+        if not (0 <= kind < 4 and 0 <= start <= end <= m):
+            raise ValueError(f"bad row range {(kind, start, end)} of {m} rows")
+        flat += [int(start), int(end), int(kind)]
+    flat += [0, 0, -1] * (KIND_RANGES - len(kinds))
+    return (ctypes.c_int * (3 * KIND_RANGES))(*flat)
+
+
 def closest_hit_cuda(
     origins, dirs, packed, block_aabb, t_max, t_decide, order, slices, *,
-    with_stats=False,
+    with_stats=False, pair_sums=None, kinds=(),
 ):
     """The Hit (intersect.Hit: t (M,) float32, +inf on a miss; index (M,)
     int64, 0 on a miss; hit (M,) bool), and with with_stats=True also the
@@ -199,6 +217,11 @@ def closest_hit_cuda(
     writes the Hit. t_max and t_decide may be None (+inf and 0 for every
     ray). Every tensor must be a contiguous CUDA tensor on one device
     (float32; ``order`` int32); anything else raises.
+
+    pair_sums, a (4,) int64 tensor (profiling.pair_sums): the executed
+    pair tests of the rows [start, end) of each (kind, start, end) of
+    ``kinds`` (at most KIND_RANGES) are added into pair_sums[kind] by the
+    same launch's epilogue; None passes the kernel a null pointer.
 
     Calls on one device are stream-ordered: every launch goes on the
     current stream (render_fused_sharded runs one process per card), and
@@ -227,6 +250,10 @@ def closest_hit_cuda(
     _check("order", order, order.shape, torch.int32, dev)
     if packed.data_ptr() % 16:
         raise ValueError("packed must be 16-byte aligned (the kernel reads float4)")
+    ranges = None
+    if pair_sums is not None:
+        _check("pair_sums", pair_sums, (4,), torch.int64, dev)
+        ranges = _kind_ranges(kinds, m)
     hit = Hit(
         t=torch.empty((m,), dtype=torch.float32, device=dev),
         index=torch.empty((m,), dtype=torch.int64, device=dev),
@@ -254,6 +281,8 @@ def closest_hit_cuda(
                 _ptr(keys),
                 _ptr(arrivals),
                 _ptr(executed),
+                _ptr(pair_sums),
+                ranges,
                 hit.t.data_ptr(),
                 hit.index.data_ptr(),
                 hit.hit.data_ptr(),

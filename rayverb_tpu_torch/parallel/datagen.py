@@ -33,7 +33,6 @@ do not batch: ``trim_batch`` cuts the fixed-shape outputs on the host.
 
 from __future__ import annotations
 
-import os
 import time
 
 import numpy as np
@@ -61,6 +60,7 @@ from ..ops.render import (
     _sorted_hist,
     _time_bins,
     chain_hashes,
+    executed_pairs,
     histogram_length,
     make_atten_spec,
     memory_budget,
@@ -69,8 +69,13 @@ from ..ops.render import (
     resort_sweeps,
     sweep_pair_tests,
 )
-from ..ops.trace import SWEEP_KINDS, _trace_impl, sweep_count
-from ..utils.diagnostics import PhaseTimer
+from ..ops.trace import _trace_impl, sweep_count
+from ..utils import profiling
+
+# render_irs_batched's flat timings (info["timings"], summed over the
+# passes) and the spans they read; total is the root's wall
+FLAT_TIMINGS = {"trace": "rv.trace", "bin": "rv.bin", "dedup": "rv.dedup",
+                "finalize": "rv.finalize"}
 
 
 def _no_pair_stats(nbatch: int, dev):
@@ -169,11 +174,12 @@ def pair_hashes(image_index, pair_rows):
 def _batched_trace_bin(soup, mics, sources, dirs_flat, pair_id, spec: AttenSpec, *,
                        nbatch: int, nreflections: int, length: int, sample_rate,
                        impl: str, bin_mode: str, resort: bool, include_diffuse: bool,
-                       stats=None, timer: PhaseTimer):
+                       stats=None):
     """The multi-pair trace and the binning of its diffuse rows
     (datagen.py:193-305): returns (bank (B, C, 8, L), _Images with
     pair-seeded hashes, per-pair (B,) tmin and tmax of the diffuse
-    arrivals). ``timer`` gets the phases 'trace' and 'bin'."""
+    arrivals). They are the phases (profiling.phase) rv.trace and
+    rv.bin."""
     dev = soup.device
     m = dirs_flat.shape[0]
     tmin, tmax = _no_pair_stats(nbatch, dev)
@@ -204,11 +210,11 @@ def _batched_trace_bin(soup, mics, sources, dirs_flat, pair_id, spec: AttenSpec,
                 mic_rows, pair_rows, vol, pos, tim, spec, length, sample_rate,
                 nbatch, init_hist=carry[0], tstats=tuple(carry[1:]))
 
-    with timer.phase("trace"):
+    with profiling.phase("rv.trace"):
         img_vol, img_pos, img_time, img_idx = _trace_impl(
             soup, mics, sources, dirs_flat, nreflections=nreflections, impl=impl,
             consume_row=consume, resort=resort, stats=stats, pair_id=pair_id)
-    with timer.phase("bin"):
+    with profiling.phase("rv.bin"):
         if include_diffuse and not sorted_bin:
             hist, tmin, tmax = carry
         elif include_diffuse and nreflections > 0:
@@ -315,11 +321,16 @@ def render_irs_batched(
     are ignored. Returns (irs (B, C, L) float32, contents (B,) int64), both
     on the device: L is the histogram_length bound (+ KERNEL_LENGTH - 1
     for the windowed-sinc bank), each pair's samples at and after its
-    content (+ KERNEL_LENGTH - 1 for the sinc bank) are zero. With
-    stats=True a third value, an info dict: the passes, sweeps, the memory
-    plan, device-synchronised phase walls (trace, bin, dedup, finalize,
-    total), issued pair tests, and, with RAYVERB_SWEEP_STATS set, the
-    executed pair tests by sweep kind.
+    content (+ KERNEL_LENGTH - 1 for the sinc bank) are zero. The call is
+    the root span rv.datagen (utils.profiling): rv.prepare (rv.atten_spec,
+    rv.sweep_table, rv.ray_order, rv.filter_params), then per pass
+    rv.inputs, rv.trace (rv.bounce, rv.closest_hit), rv.bin, rv.dedup and
+    rv.finalize. With stats=True a third value, an info dict: the passes,
+    sweeps, the memory plan, ``timings`` (the device-synchronised phase
+    walls trace, bin, dedup, finalize and total, and the call's ``spans``,
+    ``counters``, ``call`` and ``once``), issued pair tests, and the
+    executed pair tests by sweep kind, counted in the sweeps' own launches
+    and copied to the host in the last pass's finalize.
 
     impl: the closest-hit implementation ('auto' | 'cuda' | 'plain').
     microbatch: whole pairs per pass, None to plan from the shapes
@@ -345,7 +356,27 @@ def render_irs_batched(
             hrtf_table=hrtf_table, impl=impl, device=device, microbatch=microbatch,
             bin_mode=bin_mode, stats=stats)
     dev = resolve_device(device)
-    t_start = time.perf_counter()
+    timings: dict = {}
+    with profiling.call("rv.datagen", dev, stats=stats, timings=timings, flat=FLAT_TIMINGS):
+        out = _render_irs(scene, config, sources, mics, directions, hrtf_table=hrtf_table,
+                          impl=impl, dev=dev, microbatch=microbatch, bin_mode=bin_mode)
+    irs, contents, info = out
+    if not stats:
+        return irs, contents
+    b, n, nrefl = info["pairs"], info["rays_per_pair"], config.reflections
+    info.update({
+        "timings": timings,
+        "pairs_per_s": b / max(timings["total"], 1e-9),
+        "ray_bounces_per_s": b * n * nrefl / max(timings["total"], 1e-9),
+    })
+    info.update(executed_pairs(timings))
+    return irs, contents, info
+
+
+def _render_irs(scene, config, sources, mics, directions, *, hrtf_table, impl, dev,
+                microbatch, bin_mode):
+    """render_irs_batched's single-device body: (irs, contents, info
+    without the timings)."""
     if bin_mode is None:
         bin_mode = _bin_mode()
     if bin_mode not in ("sorted", "scatter"):
@@ -359,66 +390,64 @@ def render_irs_batched(
     if sources.shape != (b, 3) or mics.shape != (b, 3):
         raise ValueError(f"sources and mics must be ({b}, 3), got {sources.shape} "
                          f"and {mics.shape}")
-    spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
-    soup = soup_from_scene(scene, device=dev)
-    nblocks = soup.block_aabb.shape[0]
-    nrefl = config.reflections
-    length = histogram_length(scene, nrefl, config.sample_rate)
-    # each pair's rays in render_fused's order; whether to re-sort each
-    # bounce sweep is decided on the whole population (JAX datagen.py:258-260)
-    orders = [ray_schedule(d, nblocks)[0] for d in directions]
-    if orders[0] is not None:
-        directions = np.stack([d[o] for d, o in zip(directions, orders)])
-    resort = resort_sweeps(b * n, nblocks)
-    per = choose_pairs_per_pass(b, n, nrefl, nblocks, length, spec.nchannels,
-                                microbatch, memory_budget(dev))
-    include_diffuse = config.output_mode in (OutputMode.ALL, OutputMode.DIFFUSE_ONLY)
-    include_images = config.output_mode in (OutputMode.ALL, OutputMode.IMAGE_ONLY)
-    params, flips, nfft, filter_method = _device_filter_params(
-        config.filter, float(config.sample_rate), float(config.hipass), length,
-        str(dev), _finalize_method(config.filter))
-    pair_stats = (torch.zeros((len(SWEEP_KINDS),), dtype=torch.int64, device=dev)
-                  if stats and os.environ.get("RAYVERB_SWEEP_STATS") else None)
-    timer = PhaseTimer(dev if stats else None)
+    with profiling.span("rv.prepare"):
+        with profiling.span("rv.atten_spec"):
+            spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
+        with profiling.span("rv.sweep_table"):
+            soup = soup_from_scene(scene, device=dev)
+        nblocks = soup.block_aabb.shape[0]
+        nrefl = config.reflections
+        length = histogram_length(scene, nrefl, config.sample_rate)
+        # each pair's rays in render_fused's order; whether to re-sort each
+        # bounce sweep is decided on the whole population (JAX
+        # datagen.py:258-260)
+        with profiling.span("rv.ray_order"):
+            orders = [ray_schedule(d, nblocks)[0] for d in directions]
+            if orders[0] is not None:
+                directions = np.stack([d[o] for d, o in zip(directions, orders)])
+        resort = resort_sweeps(b * n, nblocks)
+        per = choose_pairs_per_pass(b, n, nrefl, nblocks, length, spec.nchannels,
+                                    microbatch, memory_budget(dev))
+        include_diffuse = config.output_mode in (OutputMode.ALL, OutputMode.DIFFUSE_ONLY)
+        include_images = config.output_mode in (OutputMode.ALL, OutputMode.IMAGE_ONLY)
+        with profiling.span("rv.filter_params"):
+            params, flips, nfft, filter_method = _device_filter_params(
+                config.filter, float(config.sample_rate), float(config.hipass), length,
+                str(dev), _finalize_method(config.filter))
+        pair_stats = profiling.pair_sums()
     t_dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
 
     irs, contents = [], []
     for first in range(0, b, per):
         bl = min(per, b - first)
-        mics_l = t_dev(mics[first:first + bl])
-        pair_id = torch.arange(bl, device=dev).repeat_interleave(n)
+        with profiling.span("rv.inputs"):
+            mics_l = t_dev(mics[first:first + bl])
+            sources_l = t_dev(sources[first:first + bl])
+            dirs_l = t_dev(directions[first:first + bl].reshape(bl * n, 3))
+            pair_id = torch.arange(bl, device=dev).repeat_interleave(n)
         hist, imgs, tmin, tmax = _batched_trace_bin(
-            soup, mics_l, t_dev(sources[first:first + bl]),
-            t_dev(directions[first:first + bl].reshape(bl * n, 3)), pair_id, spec,
+            soup, mics_l, sources_l, dirs_l, pair_id, spec,
             nbatch=bl, nreflections=nrefl, length=length,
             sample_rate=config.sample_rate, impl=impl, bin_mode=bin_mode,
-            resort=resort, include_diffuse=include_diffuse, stats=pair_stats,
-            timer=timer)
-        with timer.phase("dedup"):
+            resort=resort, include_diffuse=include_diffuse, stats=pair_stats)
+        with profiling.phase("rv.dedup"):
             hist, content = _finalize_hist_batched(
                 hist, imgs, pair_id, mics_l, spec, config.sample_rate, tmin, tmax,
                 nbatch=bl, length=length, include_images=include_images,
                 remove_direct=config.remove_direct, trim_predelay=config.trim_predelay)
             del imgs
-        with timer.phase("finalize"):
+        with profiling.phase("rv.finalize"):
             mixed, _ = _finalize_filter(
                 hist, content, params, config.volume_scale, flips=flips, nfft=nfft,
                 do_normalize=config.normalize, filter_method=filter_method)
             del hist
+            if first + per >= b:
+                profiling.stage()
         irs.append(mixed)
         contents.append(content)
     irs = irs[0] if len(irs) == 1 else torch.cat(irs)
     contents = contents[0] if len(contents) == 1 else torch.cat(contents)
-    if not stats:
-        return irs, contents
-
-    total = time.perf_counter() - t_start
-    timings = {}
-    for name, seconds in timer.phases:
-        timings[name] = timings.get(name, 0.0) + seconds
-    timings["total"] = total
     passes = -(-b // per)
-    issued = b * sweep_pair_tests(n, soup.num_padded, nrefl)
     info = {
         "pairs": b,
         "rays_per_pair": n,
@@ -430,15 +459,8 @@ def render_irs_batched(
         "filter_method": filter_method,
         "device": str(dev),
         "memory_plan_bytes": datagen_bytes(per, n, nrefl, nblocks, length, spec.nchannels),
-        "timings": timings,
-        "pairs_per_s": b / max(total, 1e-9),
-        "ray_bounces_per_s": b * n * nrefl / max(total, 1e-9),
-        "pair_tests_issued": issued,
+        "pair_tests_issued": b * sweep_pair_tests(n, soup.num_padded, nrefl),
     }
-    if pair_stats is not None:
-        executed = dict(zip(SWEEP_KINDS, pair_stats.tolist()))
-        info["pair_tests_executed"] = executed
-        info["pair_tests_executed_total"] = sum(executed.values())
     return irs, contents, info
 
 

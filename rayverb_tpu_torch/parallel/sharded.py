@@ -19,8 +19,8 @@ rank calls the same function with the same inputs:
     (C, 8, L) histogram; one MAX of a float64 vector that carries the
     diffuse time stats (max, and min as a negated max), each rank's distinct
     image rows and its chunks; an all-gather of each rank's buffer padded
-    to the image budget; with stats and RAYVERB_SWEEP_STATS, a SUM of the
-    executed-pair counters
+    to the image budget; with stats, a SUM of the executed-pair
+    counters
   - every rank finalizes the gathered records once, identically
     (render.py's ``_finish_render``), and returns the same IR
 
@@ -45,7 +45,6 @@ import atexit
 import os
 import shutil
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -62,15 +61,17 @@ from ..ops.render import (
     _finish_render,
     _fused_trace_bin,
     _Images,
-    _sync,
+    FLAT_TIMINGS,
     choose_ray_chunk,
+    executed_pairs,
     histogram_length,
     make_atten_spec,
     memory_budget,
     ray_schedule,
     sweep_pair_tests,
 )
-from ..ops.trace import SWEEP_KINDS, sweep_count
+from ..ops.trace import sweep_count
+from ..utils import profiling
 
 # Per-rank image rows gathered at first (rayverb_tpu/parallel/sharded.py:50).
 # Validated image chains are scarce (a handful of early reflections per
@@ -272,14 +273,32 @@ def render_fused_sharded(
     above), ``segments`` (the chunks each rank traced, a list in rank order:
     no segment dispatch here), ``resort``; and ``image_budget`` (final),
     ``image_budget_retries`` (4x steps taken), ``bin_mode``, the
-    finalize's predelay, lengths and filter method. With stats=True,
-    ``timings`` (trace_bin up to the gathered records, time_stats,
-    finalize, pull, total; device-synchronised), issued pair tests over all
-    rays, and with RAYVERB_SWEEP_STATS the executed pair tests by sweep
-    kind summed over the ranks."""
+    finalize's predelay, lengths and filter method. The call is the root
+    span rv.render of the rank, with render_fused's spans. With
+    stats=True, ``timings`` (trace_bin up to the gathered records,
+    time_stats, finalize, pull, total; device-synchronised; the rank's
+    spans and counters, its pair_tests.* summed over the ranks), issued
+    pair tests over all rays, and the executed pair tests by sweep kind
+    summed over the ranks."""
     dev = resolve_device(device)
-    t_start = time.perf_counter()
     timings: dict = {}
+    with profiling.call("rv.render", dev, stats=stats, timings=timings, flat=FLAT_TIMINGS):
+        channels, info, soup = _render_sharded(
+            scene, config, directions, mesh=mesh, hrtf_table=hrtf_table, impl=impl,
+            dev=dev, ray_chunk=ray_chunk, bin_mode=bin_mode, image_budget=image_budget)
+    if stats and info is not None:
+        n = len(directions)
+        info["timings"] = timings
+        info["pair_tests_issued"] = sweep_pair_tests(n, soup.num_padded, config.reflections)
+        info["ray_bounces_per_s"] = n * config.reflections / max(timings["total"], 1e-9)
+        info.update(executed_pairs(timings))
+    return channels, info
+
+
+def _render_sharded(scene, config, directions, *, mesh, hrtf_table, impl, dev, ray_chunk,
+                    bin_mode, image_budget):
+    """render_fused_sharded's body: (channels, info, soup), or (None,
+    None, None) on a rank outside the mesh."""
     if mesh is None:
         mesh = make_mesh(device=dev.type)
     if mesh.device_type != dev.type:
@@ -299,27 +318,27 @@ def render_fused_sharded(
     if n == 0:
         raise ValueError("need at least one ray")
     if mesh.get_coordinate() is None:
-        return None, None
+        return None, None, None
     rank = mesh.get_local_rank(axis)
     group = mesh.get_group(axis)
 
-    spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
-    soup = soup_from_scene(scene, device=dev)
-    length = histogram_length(scene, config.reflections, config.sample_rate)
-    nblocks = soup.block_aabb.shape[0]
-    # the whole population's schedule, identical on every rank; each rank
-    # then takes a contiguous Morton range (sharded.py:186-217)
-    order, resort = ray_schedule(directions, nblocks)
-    if order is not None:
-        directions = directions[order]
-    per = -(-n // d)
-    mine = directions[rank * per:(rank + 1) * per]
-    include_diffuse = config.output_mode in (OutputMode.ALL, OutputMode.DIFFUSE_ONLY)
-    pair_stats = (
-        torch.zeros((len(SWEEP_KINDS),), dtype=torch.int64, device=dev)
-        if stats and os.environ.get("RAYVERB_SWEEP_STATS")
-        else None
-    )
+    with profiling.span("rv.prepare"):
+        with profiling.span("rv.atten_spec"):
+            spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
+        with profiling.span("rv.sweep_table"):
+            soup = soup_from_scene(scene, device=dev)
+        length = histogram_length(scene, config.reflections, config.sample_rate)
+        nblocks = soup.block_aabb.shape[0]
+        # the whole population's schedule, identical on every rank; each
+        # rank then takes a contiguous Morton range (sharded.py:186-217)
+        with profiling.span("rv.ray_order"):
+            order, resort = ray_schedule(directions, nblocks)
+            if order is not None:
+                directions = directions[order]
+        per = -(-n // d)
+        mine = directions[rank * per:(rank + 1) * per]
+        include_diffuse = config.output_mode in (OutputMode.ALL, OutputMode.DIFFUSE_ONLY)
+        pair_stats = profiling.pair_sums()
 
     hist = None
     max_t_dev = torch.zeros((), device=dev)
@@ -330,26 +349,27 @@ def render_fused_sharded(
         chunk = choose_ray_chunk(mine.shape[0], config.reflections, nblocks, ray_chunk,
                                  memory_budget(dev))
         for first in range(0, mine.shape[0], chunk):
-            hist, mx, mn, part = _fused_trace_bin(
-                soup,
-                config.mic_position,
-                config.source_position,
-                mine[first:first + chunk],
-                spec,
-                nreflections=config.reflections,
-                length=length,
-                sample_rate=config.sample_rate,
-                impl=impl,
-                include_diffuse=include_diffuse,
-                resort=resort,
-                bin_mode=bin_mode,
-                init_hist=hist,
-                stats=pair_stats,
-            )
-            max_t_dev = torch.maximum(max_t_dev, mx)
-            min_t_dev = torch.minimum(min_t_dev, mn)
-            buf = _merge_dedup(buf, _admitted_rows(part, config.remove_direct))
-            del part
+            with profiling.span("rv.trace", first=first):
+                hist, mx, mn, part = _fused_trace_bin(
+                    soup,
+                    config.mic_position,
+                    config.source_position,
+                    mine[first:first + chunk],
+                    spec,
+                    nreflections=config.reflections,
+                    length=length,
+                    sample_rate=config.sample_rate,
+                    impl=impl,
+                    include_diffuse=include_diffuse,
+                    resort=resort,
+                    bin_mode=bin_mode,
+                    init_hist=hist,
+                    stats=pair_stats,
+                )
+                max_t_dev = torch.maximum(max_t_dev, mx)
+                min_t_dev = torch.minimum(min_t_dev, mn)
+                buf = _merge_dedup(buf, _admitted_rows(part, config.remove_direct))
+                del part
             chunks += 1
     if hist is None:
         hist = torch.zeros((spec.nchannels, NUM_BANDS, length), device=dev)
@@ -376,13 +396,11 @@ def render_fused_sharded(
     del buf
     if pair_stats is not None:
         dist.all_reduce(pair_stats, op=dist.ReduceOp.SUM, group=group)
-    if stats:
-        _sync(dev)
-        timings["trace_bin"] = time.perf_counter() - t_start
+    profiling.mark("trace_bin")
 
     channels, info = _finish_render(
         hist, gathered, max_t, min_t, config, spec, dev, length=length,
-        remove_direct=False, timings=timings if stats else None,
+        remove_direct=False,
     )
     info.update({
         "mesh": {axis: d},
@@ -397,14 +415,4 @@ def render_fused_sharded(
         "sweeps": sweep_count(config.reflections) * sum(segments),
         "bin_mode": bin_mode,
     })
-    if stats:
-        total = time.perf_counter() - t_start
-        timings["total"] = total
-        info["timings"] = timings
-        info["pair_tests_issued"] = sweep_pair_tests(n, soup.num_padded, config.reflections)
-        info["ray_bounces_per_s"] = n * config.reflections / max(total, 1e-9)
-        if pair_stats is not None:
-            executed = dict(zip(SWEEP_KINDS, pair_stats.tolist()))
-            info["pair_tests_executed"] = executed
-            info["pair_tests_executed_total"] = sum(executed.values())
-    return channels, info
+    return channels, info, soup

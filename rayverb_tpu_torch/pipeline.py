@@ -95,7 +95,7 @@ def render_from_raw(
 ) -> RenderResult:
     """Attenuation and post-processing of raw impulses (engine.load_raw) on
     ``device`` (None: the card), without tracing. ``timer``: a
-    diagnostics.PhaseTimer, or None."""
+    profiling.PhaseTimer, or None."""
     if results.num_impulses == 0:
         raise RuntimeError("No raytrace results returned.")
     return _post(config, results, hrtf_table=hrtf_table,
@@ -119,7 +119,7 @@ def render(
     ``device`` (None: the card). trace_impl: the closest-hit sweep, 'auto'
     | 'cuda' | 'plain' (intersect.closest_hit). ray_chunk: rays per trace
     chunk, None to plan it from memory (trace.trace). ``timer``: a
-    diagnostics.PhaseTimer whose phases (trace, population, attenuate,
+    profiling.PhaseTimer whose phases (trace, population, attenuate,
     flatten, process) then end with a device synchronisation, or None."""
     if trace_impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"trace_impl must be 'auto', 'cuda' or 'plain', not {trace_impl!r}")

@@ -1,4 +1,4 @@
-"""Sweep probe: the north star at a chosen ray count, executed pairs on.
+"""Sweep probe: the north star at a chosen ray count, with its executed pairs.
 
     python -m rayverb_tpu_torch.probe [--rays 65536] [--chunk N] [--runs 1]
         [--device cuda|cpu] [--profile] [--variant NAME]
@@ -6,8 +6,8 @@
 Renders the north-star workload (NORTH_STAR: the 101,568-triangle hall of
 scripts/gen_hall.py, generated into a temporary directory, stereo HRTF, 16
 reflections) with ``--rays`` rays, once cold and ``--runs`` times warm,
-with RAYVERB_SWEEP_STATS=1 unless the environment sets it (set it empty to
-turn the counters off), and prints one JSON line: the cold wall
+with stats on (the executed pair tests are counted in the sweeps' own
+launches), and prints one JSON line: the cold wall
 (compile_wall_s: the first render of the process, which builds or loads
 the kernels), the best warm wall and its trace_bin and finalize phases,
 the executed pair tests by sweep kind in G, and every RAYVERB_* variable
@@ -17,8 +17,8 @@ process. --chunk sets the rays per chunk (default: chosen by memory).
 (trace_variants.VARIANTS; ``probe_turns`` runs them in turns), and a
 horizon split adds the live rows of each of its two passes. On a CUDA
 device the line also holds the peak device memory of the warm runs, and
-with --profile the device breakdown of one more warm render without the
-counters (profile_render.device_breakdown: the sweep and order kernels'
+with --profile the device breakdown of one more warm render without
+stats (profile_render.device_breakdown: the sweep and order kernels'
 launches and device ms, device busy time).
 """
 
@@ -117,8 +117,7 @@ def probe(scene, config, *, runs: int = 1, chunk=None, device=None,
         "rays": config.rays,
         "variant": variant,
         "device": info["device"],
-        "env": {k: v for k, v in os.environ.items()
-                if k.startswith("RAYVERB_") and k != "RAYVERB_SWEEP_STATS"},
+        "env": {k: v for k, v in os.environ.items() if k.startswith("RAYVERB_")},
         "compile_wall_s": cold,
         "wall_s": wall,
         "trace_bin_s": info["timings"]["trace_bin"],
@@ -164,7 +163,6 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(e, file=sys.stderr)
         return 1
-    os.environ.setdefault("RAYVERB_SWEEP_STATS", "1")
     config = parse_config(json.dumps(dict(NORTH_STAR, rays=args.rays)))
     with tempfile.TemporaryDirectory(prefix="rayverb_probe_") as tmp:
         scene = hall_scene(tmp)

@@ -5,13 +5,13 @@
 
 Runs ``python -m rayverb_tpu_torch.probe --profile --variant NAME`` once
 per trace variant of trace_variants.VARIANTS (or of those named by --only)
-and turn, each in a fresh process whose only RAYVERB_* variable is
-RAYVERB_SWEEP_STATS=1: the variants in order on even turns and in reverse
+and turn, each in a fresh process without RAYVERB_* variables: the
+variants in order on even turns and in reverse
 order on odd ones (A B .. B A ..). Prints one JSON line per run
 (appended to --out as well) and then one line per variant: the executed
 pair tests by kind, a horizon split's live rows of each pass, the sweep
 and order kernels' launches and device ms per render of every turn, the
-warm walls (counters on), the profiled walls (counters off), the device
+warm walls (stats on), the profiled walls (stats off), the device
 busy ms and the peak device memory of every turn, beside the card's name
 and power limit. Exits 1 when a run fails. Needs a CUDA device.
 """
@@ -31,7 +31,6 @@ RUN_TIMEOUT_S = 600
 
 def _run(name: str, turn: int, rays: int, runs: int) -> dict:
     env = {k: v for k, v in os.environ.items() if not k.startswith("RAYVERB_")}
-    env["RAYVERB_SWEEP_STATS"] = "1"
     cmd = [sys.executable, "-m", "rayverb_tpu_torch.probe", "--rays", str(rays),
            "--runs", str(runs), "--profile", "--variant", name]
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True,

@@ -1,5 +1,6 @@
-"""Diagnostics: ray-path JSONL dumps and phase timing (PyTorch counterpart
-of rayverb_tpu/utils/diagnostics.py).
+"""Diagnostics: ray-path JSONL dumps (PyTorch counterpart of
+rayverb_tpu/utils/diagnostics.py; the phase timer is utils/profiling.py's
+PhaseTimer).
 
 The reference hides its path dump behind a compile-time DIAGNOSTIC flag
 (rayverb.h:19, helpers.cpp:16-60) writing `impulse.dump`: one JSON array
@@ -11,8 +12,6 @@ with the same schema, which the same viewers read.
 from __future__ import annotations
 
 import json
-import time
-from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -44,29 +43,3 @@ def dump_paths(path: str, nrays: int, nreflections: int, trace_outputs) -> None:
     dump_paths_arrays(
         path, trace_outputs.diffuse_position, trace_outputs.diffuse_volume
     )
-
-
-class PhaseTimer:
-    """Wall-clock phase profiler. With ``device`` a CUDA device, each phase
-    ends with a synchronisation of it, so that a phase's wall holds the
-    device work it enqueued."""
-
-    def __init__(self, device=None):
-        self.phases: list = []
-        self.device = device
-
-    @contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device is not None and torch.device(self.device).type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.phases.append((name, time.perf_counter() - t0))
-
-    def report(self) -> str:
-        total = sum(d for _, d in self.phases)
-        lines = [f"{n}: {d:.3f}s" for n, d in self.phases]
-        lines.append(f"total: {total:.3f}s")
-        return "  ".join(lines)

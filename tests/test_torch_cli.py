@@ -54,7 +54,8 @@ def test_cli_writes_wav_on_cpu(bedroom_args, tmp_path, capsys):
     assert (sr, bits) == (8000.0, 16)
     assert data.shape[0] == 2 and data.shape[1] > 100
     assert np.all(np.isfinite(data)) and np.abs(data).max() > 0.5
-    assert "pair-tests" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "phases [trace_bin:" in err and "rv.render" in err and "closest_hit.calls=" in err
 
 
 def _run_both(argv, capsys):
@@ -150,11 +151,11 @@ def test_cli_modular_flags(bedroom_args, tmp_path, capsys, flag):
                 assert abs(ge["volume"] - we["volume"]) <= 1e-6
 
 
-def test_cli_renders_hrtf_config(bedroom_args, tmp_path, capsys, monkeypatch):
+def test_cli_renders_hrtf_config(bedroom_args, tmp_path, capsys):
     """HRTF configs render through the CLI (it once refused them; the name
-    is kept): exit 0 and a stereo WAV; with --stats and
-    RAYVERB_SWEEP_STATS the executed pair tests by kind are printed."""
-    monkeypatch.setenv("RAYVERB_SWEEP_STATS", "1")
+    is kept): exit 0 and a stereo WAV; with --stats the render's span
+    table and counters are printed, the executed pair tests by kind among
+    them."""
     args = list(bedroom_args)
     args[0] = _write_config(
         tmp_path / "h.json",
@@ -168,7 +169,9 @@ def test_cli_renders_hrtf_config(bedroom_args, tmp_path, capsys, monkeypatch):
     assert (sr, bits) == (8000.0, 16)
     assert data.shape[0] == 2 and data.shape[1] > 100
     assert np.all(np.isfinite(data)) and np.abs(data).max() > 0.5
-    assert "pair-tests executed:" in err and "bounce:" in err and "shadow:" in err
+    assert "rv.closest_hit" in err and "rv.bounce" in err and "self s" in err
+    assert "pair_tests.bounce=" in err and "pair_tests.shadow=" in err
+    assert "G/s" not in err
 
 
 def test_cli_default_device_is_cuda(bedroom_args, tmp_path, capsys):

@@ -392,8 +392,7 @@ def test_image_dedup_keeps_one_row_per_chain(box, dirs):
     _, imgs, _, _ = port_datagen._batched_trace_bin(
         soup, torch.from_numpy(MICS), torch.from_numpy(SOURCES), torch.from_numpy(flat),
         pair_id, spec, nbatch=3, nreflections=NREFL, length=4096, sample_rate=8000.0,
-        impl="plain", bin_mode="sorted", resort=False, include_diffuse=True,
-        timer=port_datagen.PhaseTimer())
+        impl="plain", bin_mode="sorted", resort=False, include_diffuse=True)
     chosen = _dedup_rows(imgs, remove_direct=False)
     chains = {}
     h1, h2 = imgs.h1.numpy(), imgs.h2.numpy()
@@ -457,8 +456,7 @@ def test_trim_batch_without_trim_tail_cuts_at_content(box, dirs):
     assert len(out) == 1 and out[0].shape == (2, int(contents[0]))
 
 
-def test_stats_count_executed_pairs_by_kind(box, dirs, monkeypatch):
-    monkeypatch.setenv("RAYVERB_SWEEP_STATS", "1")
+def test_stats_count_executed_pairs_by_kind(box, dirs):
     cfg = port_parse_config(_doc())
     _, _, info = port_datagen.render_irs_batched(box, cfg, SOURCES, MICS, dirs, device="cpu",
                                                  stats=True)
@@ -466,7 +464,10 @@ def test_stats_count_executed_pairs_by_kind(box, dirs, monkeypatch):
     assert set(executed) == set(port_trace.SWEEP_KINDS)
     assert all(v > 0 for v in executed.values())
     assert info["pair_tests_executed_total"] <= info["pair_tests_issued"]
-    assert set(info["timings"]) == {"trace", "bin", "dedup", "finalize", "total"}
+    timings = info["timings"]
+    assert {k for k, v in timings.items() if isinstance(v, float)} == {
+        "trace", "bin", "dedup", "finalize", "total"}
+    assert executed == {k: timings["counters"][f"pair_tests.{k}"] for k in executed}
     assert info["passes"] == 1 and info["sweeps"] == port_trace.sweep_count(NREFL)
 
 

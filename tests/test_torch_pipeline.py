@@ -34,7 +34,7 @@ from rayverb_tpu_torch.config.schema import FilterType as PortFilter
 from rayverb_tpu_torch.config.schema import parse_config as port_parse_config
 from rayverb_tpu_torch.ops import biquad_cuda, filters
 from rayverb_tpu_torch.ops import render as port_render
-from rayverb_tpu_torch.utils.diagnostics import PhaseTimer
+from rayverb_tpu_torch.utils.profiling import PhaseTimer
 
 torch.set_num_threads(1)
 

@@ -3,9 +3,11 @@ PyTorch port's render_fused.
 
 The kinds follow the JAX trace (rayverb_tpu/ops/trace.py:492-523): bounce
 hits, reversed mic-shadow rows, image-path validation segments and image
-mic visibility. The port splits each sweep's per-row counters at the row
-ranges of the kinds exactly (the JAX trace attributes 512-row groups), so
-the kinds must sum to the counters of every counted sweep, exactly.
+mic visibility. Every stats=True call counts them: each sweep adds its
+executed pairs by row kind into the call's (4,) accumulator in its own
+launch (utils/profiling.py), split at the row ranges of the kinds exactly
+(the JAX trace attributes 512-row groups), so the kinds must sum to the
+per-row counters of every counted sweep, exactly.
 
 scatter against sorted: the diffuse bins sum in another order (index_add_
 row by row against segmented tree sums), so the IRs agree to float32
@@ -24,6 +26,7 @@ from rayverb_tpu_torch.config.schema import parse_config
 from rayverb_tpu_torch.ops import intersect as port_isect
 from rayverb_tpu_torch.ops import render as port_render
 from rayverb_tpu_torch.ops import trace as port_trace
+from rayverb_tpu_torch.utils import profiling
 
 from test_torch_render import _doc
 
@@ -44,16 +47,21 @@ def box(assets_dir):
 
 @pytest.fixture
 def recorded_sweeps(monkeypatch):
-    """Every closest_hit call of the trace: (rows, decided, with_stats,
-    executed pairs or None)."""
+    """Every closest_hit call of the trace: (rows, decided, counted, the
+    executed pairs of its rows by kind or None), the per-row counts taken
+    beside the accumulator and split at the call's row ranges."""
     calls = []
 
     def record(origins, dirs, soup, **kw):
-        out = port_isect.closest_hit(origins, dirs, soup, **kw)
-        executed = int(out[1].sum()) if kw.get("with_stats") else None
-        calls.append((origins.shape[0], kw.get("t_decide") is not None,
-                      bool(kw.get("with_stats")), executed))
-        return out
+        hit, executed = port_isect.closest_hit(origins, dirs, soup, with_stats=True, **kw)
+        counted = kw.get("pair_sums") is not None
+        by_kind = None
+        if counted:
+            by_kind = dict.fromkeys(port_trace.SWEEP_KINDS, 0)
+            for kind, start, end in kw["kinds"]:
+                by_kind[port_trace.SWEEP_KINDS[kind]] += int(executed[start:end].sum())
+        calls.append((origins.shape[0], kw.get("t_decide") is not None, counted, by_kind))
+        return hit
 
     monkeypatch.setattr(port_trace, "closest_hit", record)
     return calls
@@ -67,36 +75,35 @@ def _render(box, rays=200, reflections=12, **kw):
     )
 
 
-def test_executed_pairs_by_kind(box, recorded_sweeps, monkeypatch):
-    monkeypatch.setenv("RAYVERB_SWEEP_STATS", "1")
+def test_executed_pairs_by_kind(box, recorded_sweeps):
     _, info = _render(box, stats=True)
     ex = info["pair_tests_executed"]
     assert list(ex) == list(port_trace.SWEEP_KINDS) == ["bounce", "imgvis", "seg", "shadow"]
     assert all(isinstance(v, int) and v > 0 for v in ex.values()), ex
+    assert ex == {k: info["timings"]["counters"][f"pair_tests.{k}"] for k in ex}
     counted = [c for c in recorded_sweeps if c[2]]
     # every sweep but the direct path's carries counters (JAX counts the
-    # same sweeps); the kinds sum to them exactly
+    # same sweeps); the kinds are the per-row counts split at the ranges
     assert len(counted) == len(recorded_sweeps) - 1 == 2 * 12
-    assert info["pair_tests_executed_total"] == sum(ex.values()) == sum(c[3] for c in counted)
+    for k in port_trace.SWEEP_KINDS:
+        assert ex[k] == sum(c[3][k] for c in counted)
     # bounce sweeps are the closest-hit ones (no t_decide)
-    assert ex["bounce"] == sum(c[3] for c in counted if not c[1])
-    assert ex["shadow"] + ex["seg"] + ex["imgvis"] == sum(c[3] for c in counted if c[1])
+    assert ex["bounce"] == sum(sum(c[3].values()) for c in counted if not c[1])
+    assert ex["shadow"] + ex["seg"] + ex["imgvis"] == sum(
+        sum(c[3].values()) for c in counted if c[1])
     assert 0 < info["pair_tests_executed_total"] <= info["pair_tests_issued"]
-    assert info["pair_tests_executed_per_s"] > 0
 
 
 def test_executed_pairs_split_at_row_ranges(box, monkeypatch):
     """The image-phase sweep's rows are shadow, then segments, then
-    visibility: with every row's counter set to 1, each kind receives
-    exactly its own rows."""
-    monkeypatch.setenv("RAYVERB_SWEEP_STATS", "1")
+    visibility: with every row counting 1, each kind receives exactly its
+    own rows."""
     real = port_isect.closest_hit
 
-    def marked(origins, dirs, soup, **kw):
-        if not kw.get("with_stats"):
-            return real(origins, dirs, soup, **kw)
-        hit, executed = real(origins, dirs, soup, **kw)
-        return hit, torch.ones_like(executed)
+    def marked(origins, dirs, soup, pair_sums=None, kinds=(), **kw):
+        for kind, start, end in kinds if pair_sums is not None else ():
+            pair_sums[kind] += end - start
+        return real(origins, dirs, soup, **kw)
 
     monkeypatch.setattr(port_trace, "closest_hit", marked)
     rays, reflections = 64, 3
@@ -109,19 +116,19 @@ def test_executed_pairs_split_at_row_ranges(box, monkeypatch):
 
 
 def test_stats_off_runs_without_counters(box, recorded_sweeps, monkeypatch):
-    monkeypatch.delenv("RAYVERB_SWEEP_STATS", raising=False)
-    _, info = _render(box, stats=True)
-    assert "pair_tests_executed" not in info
+    """Without stats (and past the process's first call) no sweep gets the
+    accumulator; with stats every sweep but the direct path's does."""
+    monkeypatch.setattr(profiling, "_first_pending", False)
+    _, info = _render(box, stats=False)
+    assert "pair_tests_executed" not in info and "timings" not in info
     assert not any(c[2] for c in recorded_sweeps)
     recorded_sweeps.clear()
-    monkeypatch.setenv("RAYVERB_SWEEP_STATS", "1")
-    _, info = _render(box, stats=False)
-    assert "pair_tests_executed" not in info
-    assert not any(c[2] for c in recorded_sweeps)
+    _, info = _render(box, stats=True)
+    assert info["pair_tests_executed_total"] > 0
+    assert [c[2] for c in recorded_sweeps] == [False] + [True] * (len(recorded_sweeps) - 1)
 
 
-def test_executed_pairs_accumulate_over_chunks(box, monkeypatch):
-    monkeypatch.setenv("RAYVERB_SWEEP_STATS", "1")
+def test_executed_pairs_accumulate_over_chunks(box):
     _, one = _render(box, rays=300, reflections=4, stats=True)
     _, chunked = _render(box, rays=300, reflections=4, stats=True, ray_chunk=128)
     assert chunked["chunks"] == 3

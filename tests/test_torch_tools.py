@@ -156,7 +156,6 @@ def test_health_exit_code_at_threshold(box, threshold, rc, capsys):
 
 
 def test_probe_prints_one_json_line(box, monkeypatch, capsys):
-    monkeypatch.setenv("RAYVERB_SWEEP_STATS", "1")
     monkeypatch.setenv("RAYVERB_BIN", "sorted")
     rec = probe.probe(box, _small(), runs=2, device="cpu")
     print(json.dumps(rec))

@@ -202,10 +202,11 @@ def _calls(monkeypatch):
     real = port_trace.closest_hit
 
     def spy(origins, dirs, soup, **kw):
-        out = real(origins, dirs, soup, **kw)
-        executed = int(out[1].sum()) if kw.get("with_stats") else None
+        counted = kw.get("pair_sums") is not None
+        out = real(origins, dirs, soup, with_stats=counted, **kw)
+        executed = int(out[1].sum()) if counted else None
         calls.append((origins.shape[0], kw.get("t_max"), kw.get("t_decide"), executed))
-        return out
+        return out[0] if counted else out
 
     monkeypatch.setattr(port_trace, "closest_hit", spy)
     return calls
@@ -415,8 +416,7 @@ def test_probe_turns_runs_one_variant_per_process(monkeypatch, capsys):
     monkeypatch.setenv("RAYVERB_HORIZON", "0.5")
     rec = probe_turns._run("horizon_0.12", 1, 64, 2)
     assert rec == {"variant": "horizon_0.12", "turn": 1, "rc": 0, "wall_s": 1.5}
-    assert {k: v for k, v in seen["env"].items() if k.startswith("RAYVERB_")} == {
-        "RAYVERB_SWEEP_STATS": "1"}
+    assert not any(k.startswith("RAYVERB_") for k in seen["env"])
     assert seen["cmd"][-7:] == ["--rays", "64", "--runs", "2", "--profile",
                                 "--variant", "horizon_0.12"]
     if not torch.cuda.is_available():
@@ -424,7 +424,7 @@ def test_probe_turns_runs_one_variant_per_process(monkeypatch, capsys):
         assert "needs a CUDA device" in capsys.readouterr().err
 
 
-def test_probe_records_the_horizon_split_rows(assets_dir, monkeypatch):
+def test_probe_records_the_horizon_split_rows(assets_dir):
     """probe under a horizon variant: the IR's walls and counters as under
     the default, plus the live rows of both passes of each split of the
     cold render (the vault: 32 blocks, so 4,096 rays resort)."""
@@ -438,7 +438,6 @@ def test_probe_records_the_horizon_split_rows(assets_dir, monkeypatch):
         "source_position": [0, 1, 0], "mic_position": [0, 1, 1],
         "attenuation_model": {"speakers": [{"direction": [0, 0, 1], "shape": 0.5}]},
     }))
-    monkeypatch.setenv("RAYVERB_SWEEP_STATS", "1")
     base = probe.probe(vault, cfg, device="cpu")
     rec = probe.probe(vault, cfg, device="cpu", variant="horizon_0.12")
     assert "horizon_split_rows" not in base and rec["variant"] == "horizon_0.12"

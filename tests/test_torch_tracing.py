@@ -1,0 +1,389 @@
+"""The port's recorder of spans and counters (rayverb_tpu_torch/utils/
+profiling.py): nesting, self time and call ids; nothing recorded, no
+profiler range entered and no synchronisation with recording off; the
+spans in a torch.profiler session; every named span and counter of a
+stats=True render_fused and render_irs_batched beside their flat phase
+walls; the executed-pair counters by row range; and the port bench's
+readers of them (portbench/metrics), on a program's records and on a
+parent's, which keeps none."""
+
+import importlib.util
+import json
+import pathlib
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from rayverb_tpu_torch.config.schema import parse_config
+from rayverb_tpu_torch.ops import intersect as port_isect
+from rayverb_tpu_torch.ops import intersect_cuda
+from rayverb_tpu_torch.ops import render as port_render
+from rayverb_tpu_torch.ops import trace as port_trace
+from rayverb_tpu_torch.parallel import datagen as port_datagen
+from rayverb_tpu_torch.scene import load_scene
+from rayverb_tpu_torch.utils import profiling
+from rayverb_tpu_torch.utils.directions import random_directions
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+METRICS = REPO / "portbench" / "metrics"
+
+RENDER_SPANS = {"rv.render", "rv.prepare", "rv.atten_spec", "rv.sweep_table", "rv.ray_order",
+                "rv.trace", "rv.bounce", "rv.closest_hit", "rv.block_order", "rv.sweep",
+                "rv.bin", "rv.dedup", "rv.time_stats", "rv.finalize", "rv.pull", "rv.sync"}
+DATAGEN_SPANS = {"rv.datagen", "rv.prepare", "rv.atten_spec", "rv.sweep_table", "rv.ray_order",
+                 "rv.filter_params", "rv.inputs", "rv.trace", "rv.bounce", "rv.closest_hit",
+                 "rv.block_order", "rv.sweep", "rv.bin", "rv.dedup", "rv.finalize", "rv.sync"}
+COUNTERS = {"closest_hit.calls", "closest_hit.rows", "launches.closest_hit_sweep",
+            "launches.closest_hit_order", "launches.biquad_scan",
+            *(f"pair_tests.{k}" for k in port_trace.SWEEP_KINDS)}
+NREFL = 4
+
+
+@pytest.fixture(scope="module")
+def vault():
+    return load_scene(str(REPO / "assets" / "test_models" / "vault.obj"),
+                      str(REPO / "assets" / "materials" / "vault.json"))
+
+
+def _cfg(rays=96, **kw):
+    return parse_config(json.dumps({
+        "rays": rays, "reflections": NREFL, "sample_rate": 8000, "bit_depth": 16,
+        "source_position": [0, 1.75, 0], "mic_position": [0, 1.75, 6],
+        "attenuation_model": {"speakers": [{"direction": [0, 0, 1], "shape": 0.5}]},
+        "trim_predelay": True, **kw}))
+
+
+def _render(vault, **kw):
+    cfg = _cfg()
+    return port_render.render_fused(vault, cfg, random_directions(cfg.rays, seed=5),
+                                    device="cpu", **kw)
+
+
+def _batch(vault, **kw):
+    src = np.array([[0, 1.75, 0], [0.4, 1.5, 1.0]], np.float32)
+    mic = np.array([[0, 1.75, 6], [0.2, 1.2, 4.0]], np.float32)
+    dirs = np.stack([random_directions(64, seed=s) for s in (6, 7)])
+    return port_datagen.render_irs_batched(vault, _cfg(), src, mic, dirs, device="cpu", **kw)
+
+
+@pytest.fixture
+def not_first(monkeypatch):
+    """The process's first call is behind: a call without stats records
+    nothing."""
+    monkeypatch.setattr(profiling, "_first_pending", False)
+
+
+# ---------------------------------------------------------------------------
+# the recorder
+# ---------------------------------------------------------------------------
+
+def test_nesting_self_time_and_call_ids(not_first):
+    t = {}
+    with profiling.call("rv.outer", "cpu", stats=True, timings=t, flat={"a": "rv.a"}):
+        with profiling.span("rv.a", index=1):
+            time.sleep(0.02)
+            with profiling.span("rv.b"):
+                time.sleep(0.03)
+            with profiling.span("rv.b"):
+                time.sleep(0.01)
+        profiling.count("c", 2)
+        profiling.count("c")
+    spans = t["spans"]
+    assert set(spans) == {"rv.outer", "rv.a", "rv.b"}
+    assert spans["rv.b"]["n"] == 2 and spans["rv.a"]["n"] == 1
+    assert spans["rv.a"]["s"] >= 0.06 and spans["rv.b"]["s"] >= 0.04
+    assert spans["rv.a"]["self_s"] == pytest.approx(spans["rv.a"]["s"] - spans["rv.b"]["s"])
+    assert 0.02 <= spans["rv.a"]["self_s"] < spans["rv.a"]["s"]
+    assert t["a"] == spans["rv.a"]["s"] and t["total"] == spans["rv.outer"]["s"]
+    assert t["counters"]["c"] == 3
+    t2 = {}
+    with profiling.call("rv.outer", "cpu", stats=True, timings=t2):
+        pass
+    assert t2["call"]["id"] > t["call"]["id"] and t2["call"]["t0"] > t["call"]["t0"]
+    assert "c" not in t2["counters"]
+
+
+def test_recording_keeps_parents_and_attributes():
+    rec = profiling.Recording("cpu")
+    i = rec.open("rv.a", 0.0, {"site": "x"})
+    j = rec.open("rv.b", 1.0, {})
+    rec.close(j, 2.0)
+    rec.close(i, 4.0)
+    assert [s[3] for s in rec.spans] == [-1, 0] and rec.spans[0][4] == {"site": "x"}
+    assert rec.table() == {"rv.a": {"n": 1, "s": 4.0, "self_s": 3.0},
+                           "rv.b": {"n": 1, "s": 1.0, "self_s": 1.0}}
+
+
+def test_off_enters_no_profiler_range_and_records_nothing(vault, not_first, monkeypatch):
+    """With no stats call and no profiler session a span is the shared
+    no-op: no profiler range (record_function) is entered, no span or
+    counter is kept and the sweeps get no counters."""
+    def refuse(*a, **k):
+        raise AssertionError("profiler range entered with recording off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(profiling, "_Range", refuse)
+    assert profiling.span("rv.x") is profiling._OFF is profiling.phase("rv.x")
+    assert profiling.pair_sums() is None
+    passed = []
+    real = port_isect.closest_hit
+
+    def spy(*a, **kw):
+        passed.append(kw.get("pair_sums"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(port_trace, "closest_hit", spy)
+    once = profiling.once_record()["spans"]
+    _, info = _render(vault)
+    assert "timings" not in info
+    assert profiling._current is None and passed and all(p is None for p in passed)
+    assert profiling.once_record()["spans"] == once
+
+
+def test_sync_only_in_stats_calls(monkeypatch):
+    """phase and mark synchronise a stats call's CUDA device and nothing
+    else."""
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: synced.append(dev))
+    with profiling.phase("rv.x"):
+        profiling.mark("k")
+    assert synced == []
+    monkeypatch.setattr(profiling, "_current", profiling.Recording("cuda", stats=False))
+    profiling._current.open("rv.root", 0.0, {})
+    with profiling.phase("rv.x"):
+        profiling.mark("k")
+    assert synced == [] and profiling._current.marks == {}
+    monkeypatch.setattr(profiling, "_current", profiling.Recording("cuda", stats=True))
+    profiling._current.open("rv.root", time.perf_counter(), {})
+    with profiling.phase("rv.x"):
+        profiling.mark("k")
+    assert synced == [torch.device("cuda")] * 2 and "k" in profiling._current.marks
+
+
+def test_spans_in_a_profiler_session(vault, not_first):
+    """Under torch.profiler every span enters a profiler range, so the rv.*
+    ranges land in the session's events beside the operations, on the
+    host's side of the trace."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _render(vault)
+    events = [e for e in prof.events() if e.name.startswith("rv.")]
+    assert RENDER_SPANS <= {e.name for e in events}
+    assert all(e.device_type == torch.autograd.DeviceType.CPU for e in events)
+    assert profiling._current is None
+
+
+def test_first_call_of_the_process(vault, monkeypatch):
+    """The process's first call records its whole tree without stats
+    (kept once), and later calls without stats record nothing."""
+    monkeypatch.setattr(profiling, "_first_pending", True)
+    monkeypatch.setattr(profiling, "_first", None)
+    _render(vault)
+    first = profiling.once_record()["first"]
+    assert first["name"] == "rv.render" and first["s"] > 0
+    assert {"rv.prepare", "rv.trace", "rv.bounce", "rv.finalize"} <= set(first["spans"])
+    assert first["counters"]["closest_hit.calls"] == port_trace.sweep_count(NREFL)
+    _render(vault)
+    assert profiling.once_record()["first"] is first
+    _, info = _render(vault, stats=True)
+    assert info["timings"]["once"]["first"] == first
+
+
+def test_once_spans_are_kept_whatever_the_switches(assets_dir):
+    before = profiling.once_record()["spans"].get("rv.load_scene", {"n": 0})["n"]
+    load_scene(str(assets_dir / "test_models" / "large_square.obj"),
+               str(assets_dir / "materials" / "mat.json"))
+    spans = profiling.once_record()["spans"]
+    assert spans["rv.load_scene"]["n"] == before + 1
+    assert spans["rv.obj_parse"]["n"] >= 1 and spans["rv.scene_compile"]["n"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# the named spans and counters of a stats call
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bin_mode", ["sorted", "scatter"])
+def test_render_fused_spans_and_counters(vault, bin_mode):
+    _, info = _render(vault, stats=True, bin_mode=bin_mode)
+    t = info["timings"]
+    flat = {k for k, v in t.items() if isinstance(v, float)}
+    assert flat == {"trace_bin", "time_stats", "finalize", "pull", "total"}
+    assert set(t) == flat | {"spans", "counters", "call", "once"}
+    spans, counters = t["spans"], t["counters"]
+    assert RENDER_SPANS <= set(spans) and COUNTERS <= set(counters)
+    assert all(k.startswith("rv.") for k in spans)
+    for key, name in port_render.FLAT_TIMINGS.items():
+        assert t[key] == spans[name]["s"]
+    assert t["total"] == spans["rv.render"]["s"] >= t["trace_bin"] > spans["rv.prepare"]["s"]
+    sweeps = port_trace.sweep_count(NREFL)
+    assert spans["rv.closest_hit"]["n"] == counters["closest_hit.calls"] == sweeps
+    assert spans["rv.bounce"]["n"] == NREFL and spans["rv.trace"]["n"] == 1
+    # one image-gate compaction per image bounce; the time stats, the
+    # dedup, the content reads and the pull
+    assert spans["rv.sync"]["n"] == min(NREFL, port_trace.NUM_IMAGE_SOURCE - 1) + 6
+    assert counters["closest_hit.rows"] >= 96 * (2 * NREFL)
+    assert all(counters[f"pair_tests.{k}"] > 0 for k in port_trace.SWEEP_KINDS)
+    assert counters["launches.closest_hit_sweep"] == 0  # the CPU runs the plain sweep
+    assert info["pair_tests_executed"] == {
+        k: counters[f"pair_tests.{k}"] for k in port_trace.SWEEP_KINDS}
+    assert 0 < info["pair_tests_executed_total"] <= info["pair_tests_issued"]
+    for row in spans.values():
+        assert row["n"] >= 1 and 0 <= row["self_s"] <= row["s"] + 1e-9
+
+
+def test_render_irs_batched_spans_and_counters(vault):
+    _, _, info = _batch(vault, stats=True)
+    t = info["timings"]
+    flat = {k for k, v in t.items() if isinstance(v, float)}
+    assert flat == {"trace", "bin", "dedup", "finalize", "total"}
+    spans, counters = t["spans"], t["counters"]
+    assert DATAGEN_SPANS <= set(spans) and COUNTERS <= set(counters)
+    for key, name in port_datagen.FLAT_TIMINGS.items():
+        assert t[key] == spans[name]["s"]
+    assert t["total"] == spans["rv.datagen"]["s"]
+    assert spans["rv.closest_hit"]["n"] == port_trace.sweep_count(NREFL)
+    assert info["pair_tests_executed"]["bounce"] == counters["pair_tests.bounce"] > 0
+
+
+def test_counters_of_two_passes_sum(vault):
+    """Microbatched: the spans of every pass, and the accumulator pulled
+    once, in the last pass's finalize, holds every pass's pairs; the rows
+    are one pass's (pairs are independent)."""
+    _, _, one = _batch(vault, stats=True)
+    _, _, two = _batch(vault, stats=True, microbatch=1)
+    assert two["passes"] == 2
+    assert two["timings"]["spans"]["rv.trace"]["n"] == 2
+    assert two["timings"]["counters"]["closest_hit.calls"] == 2 * port_trace.sweep_count(NREFL)
+    assert all(v > 0 for v in two["pair_tests_executed"].values())
+    assert one["timings"]["counters"]["closest_hit.rows"] == two["timings"]["counters"][
+        "closest_hit.rows"]
+
+
+# ---------------------------------------------------------------------------
+# executed pairs by row range
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kinds", [
+    ((0, 0, 300),),
+    ((3, 0, 100), (2, 100, 250), (1, 250, 300)),
+    ((2, 0, 0), (1, 0, 37)),
+    ((3, 64, 65), (0, 200, 300)),
+])
+def test_plain_pair_sums_split_at_row_ranges(vault, kinds):
+    soup = port_isect.soup_from_scene(vault, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    o = torch.tensor([0.0, 1.75, 0.0]) + 0.5 * torch.randn((300, 3), generator=g)
+    d = torch.nn.functional.normalize(torch.randn((300, 3), generator=g), dim=-1)
+    t_max, t_decide = port_isect._bounds(300, None, None, "cpu")
+    order, slices = port_isect.sweep_schedule(o, d, t_max, soup.block_aabb)
+    acc = torch.zeros(4, dtype=torch.int64)
+    t, i, executed = port_isect.closest_hit_plain(
+        o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices,
+        with_stats=True, pair_sums=acc, kinds=kinds)
+    want = torch.zeros(4, dtype=torch.int64)
+    for kind, start, end in kinds:
+        want[kind] += executed[start:end].sum()
+    assert torch.equal(acc, want) and int(acc.sum()) > 0
+    t2, i2 = port_isect.closest_hit_plain(
+        o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices)
+    assert torch.equal(t, t2) and torch.equal(i, i2)
+
+
+def test_kind_ranges_of_the_kernel():
+    arr = intersect_cuda._kind_ranges(((3, 0, 10), (1, 10, 12)), 12)
+    assert list(arr) == [0, 10, 3, 10, 12, 1, 0, 0, -1]
+    with pytest.raises(ValueError, match="row range"):
+        intersect_cuda._kind_ranges(((4, 0, 1),), 1)
+    with pytest.raises(ValueError, match="row range"):
+        intersect_cuda._kind_ranges(((0, 0, 13),), 12)
+    with pytest.raises(ValueError, match="at most"):
+        intersect_cuda._kind_ranges(((0, 0, 1),) * 4, 1)
+
+
+def test_trace_hands_the_accumulator_to_the_sweep_only_with_stats(vault, monkeypatch):
+    """The trace's sweeps get the call's (4,) accumulator with stats and
+    None (the kernel's null pointer) without; the direct path's never."""
+    seen = []
+    real = port_isect.closest_hit
+
+    def spy(*a, **kw):
+        seen.append((kw.get("pair_sums"), kw.get("kinds")))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(port_trace, "closest_hit", spy)
+    _render(vault, stats=True)
+    accs = [p for p, _ in seen]
+    assert accs[0] is None and seen[0][1] == ()
+    assert all(p is accs[1] for p in accs[1:]) and accs[1].shape == (4,)
+    seen.clear()
+    monkeypatch.setattr(profiling, "_first_pending", False)
+    _render(vault)
+    assert all(p is None for p, _ in seen)
+
+
+# ---------------------------------------------------------------------------
+# the port bench's readers
+# ---------------------------------------------------------------------------
+
+def _reader(stem):
+    spec = importlib.util.spec_from_file_location(f"metric_{stem}", METRICS / f"{stem}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def _call_stats(total, prepare, ch_s, ch_n, rows, pairs, t0):
+    return {"total": total, "trace_bin": total * 0.9,
+            "spans": {"rv.prepare": {"n": 1, "s": prepare, "self_s": prepare},
+                      "rv.closest_hit": {"n": ch_n, "s": ch_s, "self_s": ch_s / 2}},
+            "counters": {"closest_hit.rows": rows,
+                         **{f"pair_tests.{k}": p for k, p in
+                            zip(port_trace.SWEEP_KINDS, pairs)}},
+            "call": {"id": 2, "t0": t0},
+            "once": {"spans": {}, "first": {"name": "rv.render", "t0": 100.0, "s": 2.5}}}
+
+
+PROGRAM_CTX = {"setup_s": 20.0, "stats": [
+    _call_stats(0.6, 0.010, 0.0257, 257, 1000, (100, 200, 300, 400), 110.0),
+    _call_stats(0.8, 0.030, 0.0514, 257, 2000, (100, 100, 100, 100), 111.0),
+    _call_stats(0.7, 0.020, 0.0771, 257, 500, (50, 50, 50, 50), 112.0)]}
+# the parent's records: the flat phase walls only
+PARENT_CTX = {"setup_s": 20.0, "stats": [{"trace_bin": 0.5, "time_stats": 0.01,
+                                         "finalize": 0.005, "pull": 0.001, "total": 0.6}] * 3}
+
+
+@pytest.mark.parametrize("stem, want", [
+    ("prepare_ms", 20.0),
+    ("closest_hit_host_us", 200.0),
+    ("pair_tests_per_row", 0.4),
+    ("first_call_extra_s", 1.8),
+])
+def test_reader_on_the_program(stem, want):
+    assert _reader(stem)(PROGRAM_CTX) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("stem", ["prepare_ms", "closest_hit_host_us", "pair_tests_per_row",
+                                  "first_call_extra_s"])
+@pytest.mark.parametrize("ctx", [PARENT_CTX, {"setup_s": 1.0, "stats": []}],
+                         ids=["parent", "untraced"])
+def test_reader_on_the_parent(stem, ctx):
+    assert _reader(stem)(ctx) is None
+
+
+def test_first_call_reader_needs_this_runs_first_call():
+    """A first call that began before the run's set-up (another run's, in
+    the same process) is not this run's warm-up."""
+    ctx = json.loads(json.dumps(PROGRAM_CTX))
+    ctx["setup_s"] = 5.0
+    assert _reader("first_call_extra_s")(ctx) is None
+
+
+def test_readers_on_a_real_stats_call(vault):
+    _, info = _render(vault, stats=True)
+    ctx = {"setup_s": 1e9, "stats": [info["timings"]]}
+    assert _reader("prepare_ms")(ctx) > 0
+    assert _reader("closest_hit_host_us")(ctx) > 0
+    assert _reader("pair_tests_per_row")(ctx) > 0

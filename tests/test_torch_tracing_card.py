@@ -1,0 +1,70 @@
+"""On the card: the sweep kernel's executed pair tests by row kind, added
+by its epilogue into the (4,) accumulator in the same launch, equal the
+plain version's on the same schedule (and the per-row counts and the Hit
+stay the plain version's). This file imports no JAX; on the card run
+
+    python -m pytest --noconftest -m card tests/test_torch_tracing_card.py
+
+Each test skips without a CUDA card."""
+
+import pathlib
+
+import pytest
+import torch
+
+from rayverb_tpu_torch.ops import intersect, intersect_cuda
+from rayverb_tpu_torch.scene import load_scene
+
+ASSETS = pathlib.Path(__file__).resolve().parent.parent / "assets"
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the sweep kernel runs on the card only")
+    return torch.device("cuda")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("decided", [False, True])
+@pytest.mark.parametrize("slices", [1, None])
+@pytest.mark.parametrize("kinds", [
+    ((0, 0, 4000),),
+    ((3, 0, 1500), (2, 1500, 3900), (1, 3900, 4000)),
+    ((2, 7, 7), (3, 33, 1000), (0, 2000, 3999)),
+])
+def test_kernel_pair_sums_equal_plain(card, kinds, slices, decided):
+    scene = load_scene(str(ASSETS / "test_models" / "vault.obj"),
+                       str(ASSETS / "materials" / "vault.json"))
+    soup = intersect.soup_from_scene(scene, device=card)
+    g = torch.Generator(device=card).manual_seed(11)
+    m = 4000
+    o = torch.tensor([0.0, 1.75, 0.0], device=card) + 0.5 * torch.randn(
+        (m, 3), generator=g, device=card)
+    d = torch.nn.functional.normalize(torch.randn((m, 3), generator=g, device=card), dim=-1)
+    t_max = torch.where(torch.rand(m, generator=g, device=card) < 0.1, 0.0,
+                        torch.rand(m, generator=g, device=card) * 20)
+    t_decide = t_max * 0.5 if decided else None
+    order, auto = intersect.sweep_schedule(o, d, t_max, soup.block_aabb, decided)
+    slices = auto if slices is None else slices
+    t_dec = t_decide if decided else torch.zeros_like(t_max)
+    acc_plain = torch.zeros(4, dtype=torch.int64, device=card)
+    pt, pi, p_ex = intersect.closest_hit_plain(
+        o, d, soup.packed, soup.block_aabb, t_max, t_dec, order, slices,
+        with_stats=True, pair_sums=acc_plain, kinds=kinds)
+    acc = torch.zeros(4, dtype=torch.int64, device=card)
+    hit, k_ex = intersect_cuda.closest_hit_cuda(
+        o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices,
+        with_stats=True, pair_sums=acc, kinds=kinds)
+    assert torch.equal(acc, acc_plain) and int(acc.sum()) > 0
+    assert torch.equal(k_ex, p_ex)
+    want = intersect.hit_from_raw(pt, pi)
+    assert all(torch.equal(a, b) for a, b in zip(hit, want))
+    # the accumulator alone (no per-row counts) adds the same sums again
+    launches = intersect_cuda.launches
+    hit2 = intersect_cuda.closest_hit_cuda(
+        o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices,
+        pair_sums=acc, kinds=kinds)
+    assert intersect_cuda.launches == launches + 1
+    assert torch.equal(acc, 2 * acc_plain)
+    assert all(torch.equal(a, b) for a, b in zip(hit2, want))
