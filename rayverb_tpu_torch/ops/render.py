@@ -25,11 +25,12 @@ Chunking bounds device memory only. ``ray_chunk=None`` renders all rays in
 one pass when ``render_bytes`` (a planned peak from the shapes) fits in
 MEMORY_SHARE of the card's memory, and otherwise in chunks of the largest
 power of two of rays that fits; on the CPU there is no limit. An explicit
-``ray_chunk`` always chunks at that size. The rays are Morton-sorted once
-and cut into consecutive chunks (chunk k holds the rays of the JAX render's
-chunk k); the histogram and the min/max arrival times carry across chunks,
-the last chunk runs short, and the image records of all chunks are
-concatenated and deduplicated once, in ``_finalize_hist``.
+``ray_chunk`` always chunks at that size. The rays are Morton-sorted once,
+on the device (``ray_schedule``), and cut into consecutive chunks (chunk k
+holds the rays of the JAX render's chunk k); the histogram and the min/max
+arrival times carry across chunks, the last chunk runs short, and the
+image records of all chunks are concatenated and deduplicated once, in
+``_finalize_hist``.
 
 Not ported, because they answer TPU limits: the segmentation of the chunk
 loop into programs of SEG_PAIR_BUDGET issued pairs, the ``img_cap``
@@ -62,7 +63,7 @@ from ..constants import (
     TRIM_TAIL_FLOOR,
 )
 from ..device import resolve_device
-from ..utils.directions import morton_order
+from ..utils.directions import morton_order_torch
 from ..utils import profiling
 from .attenuate import _f32, head_basis, hrtf_gain_time, speaker_gain
 from .filters import _band_coeffs, _fft_len
@@ -686,17 +687,26 @@ def render_bytes(nrays: int, nreflections: int, nblocks: int) -> int:
     )
 
 
-def ray_schedule(directions: np.ndarray, nblocks: int):
-    """The ray schedule that render_fused and trace.trace share; ray order
-    is semantically free. Returns (order, resort): ``order`` the Morton
-    permutation of the directions from 4 x RAY_BLOCK_SORT rays (coherent
-    bundles let neighbouring threads share triangle tiles), else None;
+def ray_schedule(directions: torch.Tensor, nblocks: int):
+    """The ray schedule that render_fused, trace.trace, the sharded render
+    and the batched datagen share; ray order is semantically free.
+    directions: (N, 3), or (B, N, 3) for B pairs' ray sets, a tensor on the
+    device that traces them. Returns (order, resort): ``order`` the Morton
+    permutation (utils.directions.morton_order_torch, made on that device)
+    of the rows once a set holds 4 x RAY_BLOCK_SORT rays (coherent bundles
+    let neighbouring threads share triangle tiles), else None; for B sets
+    it orders the (B * N, 3) rows pair-major, each set in its own Morton
+    order. The rows it orders are the call's counter ray_order.rows.
     ``resort`` whether each bounce sweep re-sorts its rows, which pays once
     the population fills many thread blocks and the table has enough
     blocks to cull (the JAX render's rule, on the whole population)."""
-    n = directions.shape[0]
-    order = morton_order(directions) if n >= 4 * RAY_BLOCK_SORT else None
-    return order, resort_sweeps(n, nblocks)
+    n = directions.shape[-2]
+    rows = n * (directions.shape[0] if directions.ndim == 3 else 1)
+    order = None
+    if n >= 4 * RAY_BLOCK_SORT:
+        order = morton_order_torch(directions)
+        profiling.count("ray_order.rows", rows)
+    return order, resort_sweeps(rows, nblocks)
 
 
 def resort_sweeps(nrays: int, nblocks: int) -> bool:
@@ -753,6 +763,10 @@ def render_fused(
     """Full render on ``device`` (default cuda). Returns (channels (C, T')
     float32 numpy, info dict).
 
+    directions: (N, 3) unit vectors, numpy or a tensor; they go to the
+    device once and are put in ray_schedule's Morton order there (span
+    rv.ray_order, counter ray_order.rows), then cut into chunks.
+
     hrtf_table: the (2, 360, 180, 8) table of HRTF configs (numpy or
     tensor), by default hrtf.table.default_table(). impl: closest-hit
     implementation, 'auto' | 'cuda' | 'plain' (see intersect.closest_hit).
@@ -793,12 +807,12 @@ def render_fused(
                     soup = soup_from_scene(scene, device=dev)
             length = histogram_length(scene, config.reflections, config.sample_rate)
 
-            directions = np.asarray(directions, dtype=np.float32)
-            n = directions.shape[0]
+            n = len(directions)
             if n == 0:
                 raise ValueError("need at least one ray")
             nblocks = soup.block_aabb.shape[0]
             with profiling.span("rv.ray_order"):
+                directions = _f32(directions, dev)
                 order, resort = ray_schedule(directions, nblocks)
                 if order is not None:
                     directions = directions[order]

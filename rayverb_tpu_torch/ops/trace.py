@@ -605,8 +605,8 @@ def trace(
     multiple of the chunk, the chunks' outputs are concatenated on the
     device and cut back to N. The chunk size never changes results, and
     neither does ray order: the rays are traced in render.ray_schedule's
-    order, as render_fused traces them, and the outputs are put back in the
-    caller's order."""
+    order, made on the soup's device as render_fused makes it, and the
+    outputs are put back in the caller's order."""
     from .render import choose_ray_chunk, memory_budget, ray_schedule
 
     soup = (
@@ -614,7 +614,7 @@ def trace(
         if isinstance(scene_or_soup, TriangleSoup)
         else soup_from_scene(scene_or_soup, device=device)
     )
-    directions = np.asarray(directions, dtype=np.float32)
+    directions = _f32(directions, soup.device)
     n = directions.shape[0]
     if n == 0:
         raise ValueError("need at least one ray")
@@ -626,9 +626,9 @@ def trace(
         directions = directions[order]
     nchunks = -(-n // chunk)
     if nchunks * chunk != n:
-        pad_dirs = np.zeros((nchunks * chunk - n, 3), dtype=np.float32)
+        pad_dirs = torch.zeros((nchunks * chunk - n, 3), device=soup.device)
         pad_dirs[:, 2] = 1.0
-        directions = np.concatenate([directions, pad_dirs], axis=0)
+        directions = torch.cat([directions, pad_dirs])
     pieces = [
         _trace_impl(
             soup,
@@ -647,6 +647,6 @@ def trace(
     ]
     del pieces
     if order is not None:
-        inv = _inv_permutation(torch.from_numpy(order).to(soup.device))
+        inv = _inv_permutation(order)
         fields = [f[inv] for f in fields]
     return TraceOutputs(*fields)

@@ -41,6 +41,7 @@ import torch
 from ..config.schema import OutputMode, RenderConfig
 from ..constants import NUM_BANDS, NUM_IMAGE_SOURCE
 from ..device import resolve_device
+from ..ops.attenuate import _f32
 from ..ops.filters import KERNEL_LENGTH
 from ..ops.intersect import soup_from_scene
 from ..ops.render import (
@@ -317,11 +318,15 @@ def render_irs_batched(
     (None: the card); the counterpart of datagen.py:414-537.
 
     sources, mics: (B, 3); directions: (B, N, 3), one ray set per pair
-    (broadcast one set with np.broadcast_to). The config's source and mic
-    are ignored. Returns (irs (B, C, L) float32, contents (B,) int64), both
-    on the device: L is the histogram_length bound (+ KERNEL_LENGTH - 1
-    for the windowed-sinc bank), each pair's samples at and after its
-    content (+ KERNEL_LENGTH - 1 for the sinc bank) are zero. The call is
+    (broadcast one set with np.broadcast_to), numpy or a tensor: they go
+    to the device once, where ray_schedule puts each pair's rays in its
+    Morton order in one sort (span rv.ray_order, counter ray_order.rows),
+    and each pass takes its pairs' rows from there. The config's source
+    and mic are ignored. Returns (irs (B, C, L) float32, contents (B,)
+    int64), both on the device: L is the histogram_length bound
+    (+ KERNEL_LENGTH - 1 for the windowed-sinc bank), each pair's samples
+    at and after its content (+ KERNEL_LENGTH - 1 for the sinc bank) are
+    zero. The call is
     the root span rv.datagen (utils.profiling): rv.prepare (rv.atten_spec,
     rv.sweep_table, rv.ray_order, rv.filter_params), then per pass
     rv.inputs, rv.trace (rv.bounce, rv.closest_hit), rv.bin, rv.dedup and
@@ -383,9 +388,11 @@ def _render_irs(scene, config, sources, mics, directions, *, hrtf_table, impl, d
         raise ValueError(f"bin_mode must be 'sorted' or 'scatter', not {bin_mode!r}")
     sources = np.asarray(sources, np.float32)
     mics = np.asarray(mics, np.float32)
-    directions = np.asarray(directions, np.float32)
+    if not isinstance(directions, torch.Tensor):
+        directions = np.asarray(directions, np.float32)
     if directions.ndim != 3 or directions.shape[-1] != 3 or directions.shape[1] == 0:
-        raise ValueError(f"directions must be (B, N, 3) with N > 0, got {directions.shape}")
+        raise ValueError(f"directions must be (B, N, 3) with N > 0, got "
+                         f"{tuple(directions.shape)}")
     b, n = directions.shape[:2]
     if sources.shape != (b, 3) or mics.shape != (b, 3):
         raise ValueError(f"sources and mics must be ({b}, 3), got {sources.shape} "
@@ -398,13 +405,15 @@ def _render_irs(scene, config, sources, mics, directions, *, hrtf_table, impl, d
         nblocks = soup.block_aabb.shape[0]
         nrefl = config.reflections
         length = histogram_length(scene, nrefl, config.sample_rate)
-        # each pair's rays in render_fused's order; whether to re-sort each
-        # bounce sweep is decided on the whole population (JAX
-        # datagen.py:258-260)
+        # the (B * N, 3) rows on the device, pair-major, each pair's rays in
+        # render_fused's order; whether to re-sort each bounce sweep is
+        # decided on the whole population (JAX datagen.py:258-260)
         with profiling.span("rv.ray_order"):
-            orders = [ray_schedule(d, nblocks)[0] for d in directions]
-            if orders[0] is not None:
-                directions = np.stack([d[o] for d, o in zip(directions, orders)])
+            directions = _f32(directions, dev)
+            order, _ = ray_schedule(directions, nblocks)
+            directions = directions.reshape(b * n, 3)
+            if order is not None:
+                directions = directions[order]
         resort = resort_sweeps(b * n, nblocks)
         per = choose_pairs_per_pass(b, n, nrefl, nblocks, length, spec.nchannels,
                                     microbatch, memory_budget(dev))
@@ -423,7 +432,7 @@ def _render_irs(scene, config, sources, mics, directions, *, hrtf_table, impl, d
         with profiling.span("rv.inputs"):
             mics_l = t_dev(mics[first:first + bl])
             sources_l = t_dev(sources[first:first + bl])
-            dirs_l = t_dev(directions[first:first + bl].reshape(bl * n, 3))
+            dirs_l = directions[first * n:(first + bl) * n]
             pair_id = torch.arange(bl, device=dev).repeat_interleave(n)
         hist, imgs, tmin, tmax = _batched_trace_bin(
             soup, mics_l, sources_l, dirs_l, pair_id, spec,

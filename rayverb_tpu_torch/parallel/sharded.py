@@ -53,6 +53,7 @@ import torch.distributed as dist
 from ..config.schema import OutputMode
 from ..constants import NUM_BANDS, NUM_IMAGE_SOURCE
 from ..device import resolve_device
+from ..ops.attenuate import _f32
 from ..ops.intersect import soup_from_scene
 from ..ops.render import (
     _admitted,
@@ -313,8 +314,7 @@ def _render_sharded(scene, config, directions, *, mesh, hrtf_table, impl, dev, r
         bin_mode = _bin_mode()
     if bin_mode not in ("sorted", "scatter"):
         raise ValueError(f"bin_mode must be 'sorted' or 'scatter', not {bin_mode!r}")
-    directions = np.asarray(directions, dtype=np.float32)
-    n = directions.shape[0]
+    n = len(directions)
     if n == 0:
         raise ValueError("need at least one ray")
     if mesh.get_coordinate() is None:
@@ -332,6 +332,7 @@ def _render_sharded(scene, config, directions, *, mesh, hrtf_table, impl, dev, r
         # the whole population's schedule, identical on every rank; each
         # rank then takes a contiguous Morton range (sharded.py:186-217)
         with profiling.span("rv.ray_order"):
+            directions = _f32(directions, dev)
             order, resort = ray_schedule(directions, nblocks)
             if order is not None:
                 directions = directions[order]

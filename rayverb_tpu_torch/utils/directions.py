@@ -1,5 +1,6 @@
 """Ray-direction generation (numpy), a copy of rayverb_tpu/utils/directions.py
-(:26-79) without its JAX variant, and ``sphere_point`` on tensors.
+(:26-79) without its JAX variant, and ``sphere_point`` and the Morton ray
+order (``morton_order_torch``) on tensors.
 
 The reference draws uniform sphere points via the z/theta parameterisation
 with a wall-clock-seeded std RNG (reference rayverb/helpers.cpp:62-81). Here
@@ -67,7 +68,8 @@ def uniform_directions(num: int) -> np.ndarray:
 
 def morton_order(directions: np.ndarray) -> np.ndarray:
     """The permutation of morton_sort: indices that order unit directions
-    along a Morton (Z-order) curve (stable)."""
+    along a Morton (Z-order) curve (stable). The renders take the same
+    permutation from morton_order_torch, on the directions' device."""
     d = np.asarray(directions, np.float32)
     q = np.clip((d + 1.0) * 0.5 * 1023.0, 0, 1023).astype(np.uint32)
     return np.argsort(_morton3(q), kind="stable")
@@ -80,3 +82,33 @@ def morton_sort(directions: np.ndarray) -> np.ndarray:
     tiles they need, which is what the sweep kernel's tile skip feeds on."""
     d = np.asarray(directions, np.float32)
     return d[morton_order(d)]
+
+
+def _spread10(x: torch.Tensor) -> torch.Tensor:
+    """_morton3's bit spread of 10-bit values, on int64 tensors."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def morton_keys(directions) -> torch.Tensor:
+    """morton_order's 30-bit Morton codes of (..., 3) unit directions, as
+    (...) int64 on their device: the same float32 quantisation, truncated,
+    and the same interleave, so the same keys bit for bit."""
+    d = torch.as_tensor(directions, dtype=torch.float32)
+    q = torch.clamp((d + 1.0) * 0.5 * 1023.0, 0, 1023).to(torch.int64)
+    return _spread10(q[..., 0]) | (_spread10(q[..., 1]) << 1) | (_spread10(q[..., 2]) << 2)
+
+
+def morton_order_torch(directions) -> torch.Tensor:
+    """morton_order on the directions' device: for (N, 3) directions the
+    same (N,) int64 permutation. For (B, N, 3) ray sets, the permutation of
+    their (B * N, 3) rows, pair-major, each set in its own Morton order:
+    morton_order of each set, offset by b * N and concatenated, taken in
+    one stable sort of (b << 32) | key."""
+    key = morton_keys(directions)
+    if key.ndim == 2:
+        pair = torch.arange(key.shape[0], device=key.device)
+        key = ((pair[:, None] << 32) | key).reshape(-1)
+    return torch.argsort(key, stable=True)

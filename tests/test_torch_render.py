@@ -75,7 +75,8 @@ def feed_jax_trace(monkeypatch, scene, calls=None):
     """Replace the port render's trace by the JAX package's trace_chunk of
     the same rays, fed through the port's consume protocol, so that both
     renders bin the same trace records. With ``calls``, each call's
-    directions are appended to it."""
+    directions are appended to it as they came (a tensor on the soup's
+    device)."""
     from rayverb_tpu.ops.intersect import soup_from_scene
     from rayverb_tpu.ops.trace import trace_chunk
 
@@ -83,9 +84,9 @@ def feed_jax_trace(monkeypatch, scene, calls=None):
 
     def trace(_soup, mic, source, directions, *, nreflections, impl,
               consume_row, resort, stats):
-        directions = np.asarray(directions)
         if calls is not None:
             calls.append(directions)
+        directions = np.asarray(directions)
         out = trace_chunk(soup, np.float32(mic), np.float32(source), directions,
                           nreflections=nreflections)
         t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731

@@ -248,6 +248,32 @@ def test_render_irs_batched_spans_and_counters(vault):
     assert info["pair_tests_executed"]["bounce"] == counters["pair_tests.bounce"] > 0
 
 
+@pytest.mark.parametrize("entry", ["render_fused", "render_irs_batched"])
+@pytest.mark.parametrize("rays", [2047, 2048])
+def test_ray_order_rows_counter(vault, entry, rays):
+    """ray_order.rows counts the rows put in Morton order: N for
+    render_fused, B x N for render_irs_batched (B = 2), none under 4 x
+    RAY_BLOCK_SORT = 2,048 rays, where no order is taken."""
+    cfg = _cfg(rays=rays, reflections=1)
+    if entry == "render_fused":
+        _, info = port_render.render_fused(vault, cfg, random_directions(rays, seed=5),
+                                           device="cpu", stats=True)
+        pairs = 1
+    else:
+        src = np.array([[0, 1.75, 0], [0.4, 1.5, 1.0]], np.float32)
+        mic = np.array([[0, 1.75, 6], [0.2, 1.2, 4.0]], np.float32)
+        dirs = np.stack([random_directions(rays, seed=s) for s in (6, 7)])
+        _, _, info = port_datagen.render_irs_batched(vault, cfg, src, mic, dirs,
+                                                     device="cpu", stats=True)
+        pairs = 2
+    counters = info["timings"]["counters"]
+    assert info["timings"]["spans"]["rv.ray_order"]["n"] == 1
+    if rays < 2048:
+        assert "ray_order.rows" not in counters
+    else:
+        assert counters["ray_order.rows"] == pairs * rays
+
+
 def test_counters_of_two_passes_sum(vault):
     """Microbatched: the spans of every pass, and the accumulator pulled
     once, in the last pass's finalize, holds every pass's pairs; the rows
