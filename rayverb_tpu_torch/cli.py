@@ -16,7 +16,8 @@ JAX CLI. Speaker and HRTF configs, on the GPU unless ``--device cpu`` is
 given. With ``--stats`` the phase walls are printed, then the render's
 span table (calls, total and self seconds by ``rv.*`` span,
 utils/profiling.py) and its counters: closest-hit calls and rows, kernel
-launches, and the executed pair tests by sweep kind. Errors: message to
+launches, the executed pair tests and the live rows by sweep kind, and the
+histogram's static bound and the finalize's bucket. Errors: message to
 stderr, exit code 1.
 """
 

@@ -85,11 +85,12 @@
 //      exact pre-test that never rejects a pair the full test accepts.
 //   6. Executed pair tests (kTile per block a ray takes part in, per slice)
 //      are counted per ray. The epilogue adds them by row kind into a
-//      (4,) accumulator, the sweep's row ranges (at most kRanges, each
+//      (8,) accumulator, the sweep's row ranges (at most kRanges, each
 //      with its kind) given as an argument: a warp sums each kind's rows
-//      (redux.sync) and adds the sum with one atomicAdd per kind. Where
-//      the caller asks for per-ray counts, they are added with one
-//      atomicAdd per ray and slice.
+//      (redux.sync) and adds the sum with one atomicAdd per kind. Slice 0
+//      adds the rows that entered live (t_max > 0) by kind after them, in
+//      the same way. Where the caller asks for per-ray counts, they are
+//      added with one atomicAdd per ray and slice.
 //
 // Arithmetic is written operation for operation as closest_hit_plain does
 // it, the file is built with --fmad=false (no FMA contraction) and IEEE
@@ -337,10 +338,14 @@ closest_hit_sweep(const float* __restrict__ origins,
       if (ray >= ranges.start[r] && ray < ranges.end[r]) kind = ranges.kind[r];
     }
     const unsigned int mine = writer && kind >= 0 ? (unsigned int)count : 0u;
+    // a live row counts once, in slice 0
+    const unsigned int mine_live = writer && kind >= 0 && live && slice == 0;
     for (int k = 0; k < kKinds; ++k) {
       const unsigned int sum = __reduce_add_sync(0xFFFFFFFFu, kind == k ? mine : 0u);
-      if (threadIdx.x % 32 == 0 && sum != 0) {
-        atomicAdd(kind_sums + k, (unsigned long long)sum);
+      const unsigned int rows = __reduce_add_sync(0xFFFFFFFFu, kind == k ? mine_live : 0u);
+      if (threadIdx.x % 32 == 0) {
+        if (sum != 0) atomicAdd(kind_sums + k, (unsigned long long)sum);
+        if (rows != 0) atomicAdd(kind_sums + kKinds + k, (unsigned long long)rows);
       }
     }
   }
@@ -603,8 +608,9 @@ extern "C" int rv_block_order(const void* origins, const void* dirs,
 // int32; keys (m,) 64-bit all-ones and arrivals (ceil(m / 32),) 32-bit
 // zeros, the merge's scratch for slices > 1, which the launch leaves as
 // it found them (null for one slice); executed (m,) int64 added to (or
-// null: no per-ray counters); kind_sums (4,) int64 added to by row kind
-// (or null: no such counters) over the row ranges `ranges`, a host array
+// null: no per-ray counters); kind_sums (8,) int64, the executed pair
+// tests and then the live rows, added to by row kind (or null: no such
+// counters) over the row ranges `ranges`, a host array
 // of kRanges (start, end, kind) triples (kind -1: unused; null: none);
 // the Hit: hit_t (m,) float32, hit_index (m,) int64, hit_found (m,)
 // bool. Returns cudaErrorInvalidValue without the scratch where slices >

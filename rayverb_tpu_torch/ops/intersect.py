@@ -472,9 +472,10 @@ def closest_hit_plain(
 
     with_stats=True also returns (M,) int64 executed pair tests per ray
     (SWEEP_BLOCK per block and slice the ray took part in). With
-    ``pair_sums`` (a (4,) int64 tensor) those of the rows [start, end) of
-    each (kind, start, end) of ``kinds`` are added into pair_sums[kind],
-    as the kernel's epilogue adds them."""
+    ``pair_sums`` (a (8,) int64 tensor, profiling.pair_sums) those of the
+    rows [start, end) of each (kind, start, end) of ``kinds`` are added into
+    pair_sums[kind], and the number of those rows that are live (t_max > 0)
+    into pair_sums[LIVE_ROWS + kind], as the kernel's epilogue adds them."""
     count_rows = with_stats or pair_sums is not None
     m = origins.shape[0]
     nb = block_aabb.shape[0]
@@ -537,8 +538,10 @@ def closest_hit_plain(
     out_t, out_i = unpack_keys(torch.amin(keys[:, :m], dim=0))
     executed = executed.view(-1)[:m]
     if pair_sums is not None:
+        live_rows = live.view(-1)[:m]
         for kind, start, end in kinds:
             pair_sums[kind] += executed[start:end].sum()
+            pair_sums[profiling.LIVE_ROWS + kind] += live_rows[start:end].sum()
     if with_stats:
         return out_t, out_i, executed
     return out_t, out_i
@@ -605,9 +608,10 @@ def closest_hit(
     (which writes the Hit and adds the counters).
 
     with_stats=True returns (Hit, executed pair tests per ray). pair_sums
-    (a (4,) int64 tensor, profiling.pair_sums) and ``kinds``: the executed
+    (a (8,) int64 tensor, profiling.pair_sums) and ``kinds``: the executed
     pair tests of the rows [start, end) of each (kind, start, end) are
-    added into pair_sums[kind] (closest_hit_plain).
+    added into pair_sums[kind], and its live rows into pair_sums[LIVE_ROWS
+    + kind] (closest_hit_plain).
 
     A call is the span rv.closest_hit (attrs rows, kinds) with the spans
     rv.block_order and rv.sweep, the host side of the two launches, and

@@ -218,10 +218,11 @@ def closest_hit_cuda(
     ray). Every tensor must be a contiguous CUDA tensor on one device
     (float32; ``order`` int32); anything else raises.
 
-    pair_sums, a (4,) int64 tensor (profiling.pair_sums): the executed
+    pair_sums, a (8,) int64 tensor (profiling.pair_sums): the executed
     pair tests of the rows [start, end) of each (kind, start, end) of
-    ``kinds`` (at most KIND_RANGES) are added into pair_sums[kind] by the
-    same launch's epilogue; None passes the kernel a null pointer.
+    ``kinds`` (at most KIND_RANGES) are added into pair_sums[kind], and the
+    rows of the range that enter live (t_max > 0) into pair_sums[4 + kind],
+    by the same launch's epilogue; None passes the kernel a null pointer.
 
     Calls on one device are stream-ordered: every launch goes on the
     current stream (render_fused_sharded runs one process per card), and
@@ -252,7 +253,7 @@ def closest_hit_cuda(
         raise ValueError("packed must be 16-byte aligned (the kernel reads float4)")
     ranges = None
     if pair_sums is not None:
-        _check("pair_sums", pair_sums, (4,), torch.int64, dev)
+        _check("pair_sums", pair_sums, (8,), torch.int64, dev)
         ranges = _kind_ranges(kinds, m)
     hit = Hit(
         t=torch.empty((m,), dtype=torch.float32, device=dev),

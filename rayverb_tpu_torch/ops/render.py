@@ -806,6 +806,7 @@ def render_fused(
                 with profiling.span("rv.sweep_table"):
                     soup = soup_from_scene(scene, device=dev)
             length = histogram_length(scene, config.reflections, config.sample_rate)
+            profiling.count("hist.len", length)
 
             n = len(directions)
             if n == 0:
@@ -914,6 +915,7 @@ def _finish_render(hist, imgs: _Images, max_t: float, min_t: float,
                 np.floor((max_t + 0.1 * SECONDS_PER_METER) * config.sample_rate + 0.5)
             ) + 8
             bucket = min(length, max(4096, 1 << (need - 1).bit_length()))
+        profiling.count("finalize.bucket", bucket)
         if bucket < length:
             hist = hist[..., :bucket].contiguous()
         params, flips, nfft, filter_method = _device_filter_params(

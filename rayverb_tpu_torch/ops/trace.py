@@ -262,12 +262,13 @@ def _trace_impl(
     resort=True feeds each later bounce sweep its rows sorted by the mix6
     key (a sweep-local permutation; the ray state stays in row order).
 
-    stats, a (len(SWEEP_KINDS),) int64 tensor on the soup's device
+    stats, a (2 * len(SWEEP_KINDS),) int64 tensor on the soup's device
     (profiling.pair_sums): every sweep but the direct path's adds its
-    executed pair tests by row kind into it in place, in the sweep's own
-    launch (JAX trace.py:492-523). Each image-phase sweep holds shadow
-    rows, then segment rows, then image-visibility rows; its counts are
-    split at those row ranges exactly. With stats=None the sweeps run
+    executed pair tests by row kind, and then its live rows (t_max > 0) by
+    row kind, into it in place, in the sweep's own launch (JAX
+    trace.py:492-523). Each image-phase sweep holds shadow rows, then
+    segment rows, then image-visibility rows; its counts are split at
+    those row ranges exactly. With stats=None the sweeps run
     without counters.
 
     Each bounce is the span rv.bounce (attrs index, phase 'image' or

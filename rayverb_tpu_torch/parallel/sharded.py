@@ -328,6 +328,7 @@ def _render_sharded(scene, config, directions, *, mesh, hrtf_table, impl, dev, r
         with profiling.span("rv.sweep_table"):
             soup = soup_from_scene(scene, device=dev)
         length = histogram_length(scene, config.reflections, config.sample_rate)
+        profiling.count("hist.len", length)
         nblocks = soup.block_aabb.shape[0]
         # the whole population's schedule, identical on every rank; each
         # rank then takes a contiguous Morton range (sharded.py:186-217)

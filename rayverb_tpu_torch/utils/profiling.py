@@ -25,12 +25,14 @@ whole span tree of the process's first call, whose root ends with one
 device synchronisation, so that the first call's extra cost has names.
 
 Counters: ``closest_hit.calls`` and ``closest_hit.rows`` (host),
-``pair_tests.<kind>`` (the sweep kernel's executed pair tests by row kind,
-added on the device into the call's accumulator, ``pair_sums``, and copied
-to the host once, before the call's own final pull: ``stage``), and
-``launches.<kernel>``, the call's deltas of the module counters that the
-kernel wrappers keep (LAUNCH_COUNTERS). A CUDA-graph replay site would
-count ``launches.graph`` once per replay.
+``pair_tests.<kind>`` and ``live_rows.<kind>`` (the sweep kernel's executed
+pair tests and the rows that enter it live, t_max > 0, by row kind, added
+on the device into the call's accumulator, ``pair_sums``, and copied to
+the host once, before the call's own final pull: ``stage``), ``hist.len``
+and ``finalize.bucket`` (render_fused's static histogram bound and the
+samples its finalize ran on), and ``launches.<kernel>``, the call's deltas
+of the module counters that the kernel wrappers keep (LAUNCH_COUNTERS). A
+CUDA-graph replay site would count ``launches.graph`` once per replay.
 """
 
 from __future__ import annotations
@@ -48,8 +50,11 @@ _profiling = torch._C._autograd._profiler_enabled
 # a profiler range on the host only (module docstring)
 _Range = torch._C._profiler._RecordFunctionFast
 
-# row kinds of the executed-pair accumulator (ops/trace.py SWEEP_KINDS)
+# row kinds of the sweep's accumulator (ops/trace.py SWEEP_KINDS); the
+# accumulator holds the executed pair tests by kind, then the live rows by
+# kind (LIVE_ROWS + kind)
 PAIR_KINDS = ("bounce", "imgvis", "seg", "shadow")
+LIVE_ROWS = len(PAIR_KINDS)
 
 # counter name -> (module, attribute) of the launch counters the kernel
 # wrappers keep; a module not imported yet has launched nothing
@@ -87,7 +92,7 @@ class Recording:
         self.counters: dict = defaultdict(int)
         self.marks: dict = {}
         self.launches0 = _launch_counts()
-        self.pairs = None   # (len(PAIR_KINDS),) int64 on dev
+        self.pairs = None   # (2 * len(PAIR_KINDS),) int64 on dev
         self.staged = None  # its host copy
 
     def open(self, name: str, start: float, attrs: dict) -> int:
@@ -127,8 +132,10 @@ class Recording:
         for name, n in now.items():
             out[name] = n - self.launches0.get(name, 0)
         if self.staged is not None:
-            out.update((f"pair_tests.{k}", int(v))
-                       for k, v in zip(PAIR_KINDS, self.staged.tolist()))
+            sums = self.staged.tolist()
+            out.update((f"pair_tests.{k}", int(v)) for k, v in zip(PAIR_KINDS, sums))
+            out.update((f"live_rows.{k}", int(v))
+                       for k, v in zip(PAIR_KINDS, sums[LIVE_ROWS:]))
         return out
 
     def fold(self, flat: dict) -> dict:
@@ -246,14 +253,15 @@ def mark(key: str):
 
 
 def pair_sums():
-    """The current ``stats`` call's executed-pair accumulator, a
-    (len(PAIR_KINDS),) int64 tensor on its device, zeroed once per call;
-    None when the call counts none."""
+    """The current ``stats`` call's sweep accumulator, a (2 *
+    len(PAIR_KINDS),) int64 tensor on its device, zeroed once per call: the
+    executed pair tests by row kind, then the live rows by row kind; None
+    when the call counts none."""
     rec = _current
     if rec is None or not rec.stats or rec.dev is None:
         return None
     if rec.pairs is None:
-        rec.pairs = torch.zeros((len(PAIR_KINDS),), dtype=torch.int64, device=rec.dev)
+        rec.pairs = torch.zeros((2 * len(PAIR_KINDS),), dtype=torch.int64, device=rec.dev)
     return rec.pairs
 
 

@@ -171,6 +171,8 @@ def test_cli_renders_hrtf_config(bedroom_args, tmp_path, capsys):
     assert np.all(np.isfinite(data)) and np.abs(data).max() > 0.5
     assert "rv.closest_hit" in err and "rv.bounce" in err and "self s" in err
     assert "pair_tests.bounce=" in err and "pair_tests.shadow=" in err
+    assert "live_rows.bounce=" in err and "live_rows.shadow=" in err
+    assert "hist.len=" in err and "finalize.bucket=" in err
     assert "G/s" not in err
 
 

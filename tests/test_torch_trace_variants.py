@@ -219,7 +219,7 @@ def test_horizon_stats_count_both_passes(box, dirs, monkeypatch):
     and the split reports the live rows of each pass."""
     calls = _calls(monkeypatch)
     live = []
-    stats = torch.zeros(len(port_trace.SWEEP_KINDS), dtype=torch.int64)
+    stats = torch.zeros(2 * len(port_trace.SWEEP_KINDS), dtype=torch.int64)
     with trace_variants.applied("horizon_0.05", live):
         port_trace._trace_impl(box[2], MIC, SOURCE, dirs, nreflections=NREFL,
                                impl="plain", resort=True, stats=stats)
@@ -228,6 +228,9 @@ def test_horizon_stats_count_both_passes(box, dirs, monkeypatch):
     bounce = [c for c in calls[1:] if c[2] is None]
     assert len(bounce) == 2 * NREFL - 1
     assert int(stats[port_trace._BOUNCE]) == sum(c[3] for c in bounce)
+    # the live rows of both passes count
+    assert int(stats[len(port_trace.SWEEP_KINDS) + port_trace._BOUNCE]) == sum(
+        int((c[1] > 0).sum()) for c in bounce)
     horizon = 0.05 * torch.linalg.norm(box[2].bounds[1] - box[2].bounds[0])
     # bounce 0 (from the source) is not sorted, and so not split
     pass1, pass2 = bounce[1::2], bounce[2::2]

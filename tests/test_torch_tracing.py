@@ -39,7 +39,8 @@ DATAGEN_SPANS = {"rv.datagen", "rv.prepare", "rv.atten_spec", "rv.sweep_table", 
                  "rv.block_order", "rv.sweep", "rv.bin", "rv.dedup", "rv.finalize", "rv.sync"}
 COUNTERS = {"closest_hit.calls", "closest_hit.rows", "launches.closest_hit_sweep",
             "launches.closest_hit_order", "launches.biquad_scan",
-            *(f"pair_tests.{k}" for k in port_trace.SWEEP_KINDS)}
+            *(f"pair_tests.{k}" for k in port_trace.SWEEP_KINDS),
+            *(f"live_rows.{k}" for k in port_trace.SWEEP_KINDS)}
 NREFL = 4
 
 
@@ -220,6 +221,8 @@ def test_render_fused_spans_and_counters(vault, bin_mode):
     assert t["total"] == spans["rv.render"]["s"] >= t["trace_bin"] > spans["rv.prepare"]["s"]
     sweeps = port_trace.sweep_count(NREFL)
     assert spans["rv.closest_hit"]["n"] == counters["closest_hit.calls"] == sweeps
+    assert counters["hist.len"] == info["histogram_length"]
+    assert 4096 <= counters["finalize.bucket"] <= counters["hist.len"]
     assert spans["rv.bounce"]["n"] == NREFL and spans["rv.trace"]["n"] == 1
     # one image-gate compaction per image bounce; the time stats, the
     # dedup, the content reads and the pull
@@ -304,15 +307,18 @@ def test_plain_pair_sums_split_at_row_ranges(vault, kinds):
     o = torch.tensor([0.0, 1.75, 0.0]) + 0.5 * torch.randn((300, 3), generator=g)
     d = torch.nn.functional.normalize(torch.randn((300, 3), generator=g), dim=-1)
     t_max, t_decide = port_isect._bounds(300, None, None, "cpu")
+    # a tenth of the rows dead (t_max 0): they count no pair and no live row
+    t_max = torch.where(torch.arange(300) % 10 == 3, 0.0, t_max)
     order, slices = port_isect.sweep_schedule(o, d, t_max, soup.block_aabb)
-    acc = torch.zeros(4, dtype=torch.int64)
+    acc = torch.zeros(8, dtype=torch.int64)
     t, i, executed = port_isect.closest_hit_plain(
         o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices,
         with_stats=True, pair_sums=acc, kinds=kinds)
-    want = torch.zeros(4, dtype=torch.int64)
+    want = torch.zeros(8, dtype=torch.int64)
     for kind, start, end in kinds:
         want[kind] += executed[start:end].sum()
-    assert torch.equal(acc, want) and int(acc.sum()) > 0
+        want[profiling.LIVE_ROWS + kind] += (t_max[start:end] > 0).sum()
+    assert torch.equal(acc, want) and int(acc[:4].sum()) > 0 and int(acc[4:].sum()) > 0
     t2, i2 = port_isect.closest_hit_plain(
         o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices)
     assert torch.equal(t, t2) and torch.equal(i, i2)
@@ -330,7 +336,7 @@ def test_kind_ranges_of_the_kernel():
 
 
 def test_trace_hands_the_accumulator_to_the_sweep_only_with_stats(vault, monkeypatch):
-    """The trace's sweeps get the call's (4,) accumulator with stats and
+    """The trace's sweeps get the call's (8,) accumulator with stats and
     None (the kernel's null pointer) without; the direct path's never."""
     seen = []
     real = port_isect.closest_hit
@@ -343,7 +349,7 @@ def test_trace_hands_the_accumulator_to_the_sweep_only_with_stats(vault, monkeyp
     _render(vault, stats=True)
     accs = [p for p, _ in seen]
     assert accs[0] is None and seen[0][1] == ()
-    assert all(p is accs[1] for p in accs[1:]) and accs[1].shape == (4,)
+    assert all(p is accs[1] for p in accs[1:]) and accs[1].shape == (8,)
     seen.clear()
     monkeypatch.setattr(profiling, "_first_pending", False)
     _render(vault)
@@ -392,7 +398,7 @@ def test_reader_on_the_program(stem, want):
 
 
 @pytest.mark.parametrize("stem", ["prepare_ms", "closest_hit_host_us", "pair_tests_per_row",
-                                  "first_call_extra_s"])
+                                  "first_call_extra_s", "live_row_share"])
 @pytest.mark.parametrize("ctx", [PARENT_CTX, {"setup_s": 1.0, "stats": []}],
                          ids=["parent", "untraced"])
 def test_reader_on_the_parent(stem, ctx):
@@ -413,3 +419,68 @@ def test_readers_on_a_real_stats_call(vault):
     assert _reader("prepare_ms")(ctx) > 0
     assert _reader("closest_hit_host_us")(ctx) > 0
     assert _reader("pair_tests_per_row")(ctx) > 0
+
+
+# ---------------------------------------------------------------------------
+# live rows by sweep kind
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("model, materials, doc", [
+    ("stonehenge.obj", "mat.json", {"source_position": [0, 2, 0], "mic_position": [0, 2, 10],
+                                    "filter": "twopass", "hipass": False}),
+    ("vault.obj", "vault.json", {}),
+], ids=["stonehenge", "vault"])
+def test_live_rows_equal_a_host_count(model, materials, doc, monkeypatch):
+    """live_rows.<kind> of a stats render are the rows of that kind that
+    enter the sweeps with t_max > 0, counted on the host from the sweeps'
+    own arguments; the open scene loses most of its rays, the vault none."""
+    scene = load_scene(str(REPO / "assets" / "test_models" / model),
+                       str(REPO / "assets" / "materials" / materials))
+    cfg = _cfg(rays=512, reflections=12, **doc)
+    want = dict.fromkeys(port_trace.SWEEP_KINDS, 0)
+    real = port_isect.closest_hit
+
+    def spy(*a, **kw):
+        for kind, start, end in kw.get("kinds", ()):
+            want[port_trace.SWEEP_KINDS[kind]] += int((kw["t_max"][start:end] > 0).sum())
+        return real(*a, **kw)
+
+    monkeypatch.setattr(port_trace, "closest_hit", spy)
+    _, info = port_render.render_fused(scene, cfg, random_directions(cfg.rays, seed=5),
+                                       device="cpu", stats=True)
+    counters = info["timings"]["counters"]
+    assert {k: counters[f"live_rows.{k}"] for k in want} == want
+    share = want["bounce"] / (cfg.rays * cfg.reflections)
+    assert share < 0.5 if model == "stonehenge.obj" else share > 0.99
+
+
+def test_live_rows_off_records_and_passes_nothing(vault, monkeypatch):
+    """Without stats, even in the process's first call (which records its
+    spans and host counters), no sweep is handed an accumulator and no
+    live_rows or pair_tests counter is kept."""
+    monkeypatch.setattr(profiling, "_first_pending", True)
+    monkeypatch.setattr(profiling, "_first", None)
+    passed = []
+    real = port_isect.closest_hit
+
+    def spy(*a, **kw):
+        passed.append(kw.get("pair_sums"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(port_trace, "closest_hit", spy)
+    _, info = _render(vault)
+    counters = profiling.once_record()["first"]["counters"]
+    assert "timings" not in info and passed and all(p is None for p in passed)
+    assert counters["closest_hit.calls"] == len(passed)
+    assert not [k for k in counters if k.startswith(("live_rows.", "pair_tests."))]
+
+
+def test_live_row_share_reader(vault):
+    """live_row_share reads live_rows.bounce over rays x reflections x pairs,
+    in percent, the median over the window's calls."""
+    ctx = {"rays": 100, "reflections": 4, "pairs": 2, "stats": [
+        {"counters": {"live_rows.bounce": n}} for n in (400, 200, 800)]}
+    assert _reader("live_row_share")(ctx) == pytest.approx(50.0)
+    _, info = _render(vault, stats=True)
+    ctx = {"rays": 96, "reflections": NREFL, "pairs": 1, "stats": [info["timings"]]}
+    assert 99.0 <= _reader("live_row_share")(ctx) <= 100.0

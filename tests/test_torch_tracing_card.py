@@ -1,7 +1,8 @@
-"""On the card: the sweep kernel's executed pair tests by row kind, added
-by its epilogue into the (4,) accumulator in the same launch, equal the
-plain version's on the same schedule (and the per-row counts and the Hit
-stay the plain version's). This file imports no JAX; on the card run
+"""On the card: the sweep kernel's executed pair tests and live rows
+(t_max > 0) by row kind, added by its epilogue into the (8,) accumulator in
+the same launch, equal the plain version's on the same schedule, at one
+slice and at the schedule's own (and the per-row counts and the Hit stay
+the plain version's). This file imports no JAX; on the card run
 
     python -m pytest --noconftest -m card tests/test_torch_tracing_card.py
 
@@ -48,15 +49,19 @@ def test_kernel_pair_sums_equal_plain(card, kinds, slices, decided):
     order, auto = intersect.sweep_schedule(o, d, t_max, soup.block_aabb, decided)
     slices = auto if slices is None else slices
     t_dec = t_decide if decided else torch.zeros_like(t_max)
-    acc_plain = torch.zeros(4, dtype=torch.int64, device=card)
+    acc_plain = torch.zeros(8, dtype=torch.int64, device=card)
     pt, pi, p_ex = intersect.closest_hit_plain(
         o, d, soup.packed, soup.block_aabb, t_max, t_dec, order, slices,
         with_stats=True, pair_sums=acc_plain, kinds=kinds)
-    acc = torch.zeros(4, dtype=torch.int64, device=card)
+    acc = torch.zeros(8, dtype=torch.int64, device=card)
     hit, k_ex = intersect_cuda.closest_hit_cuda(
         o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices,
         with_stats=True, pair_sums=acc, kinds=kinds)
-    assert torch.equal(acc, acc_plain) and int(acc.sum()) > 0
+    assert torch.equal(acc, acc_plain) and int(acc[:4].sum()) > 0
+    live = torch.zeros(4, dtype=torch.int64, device=card)
+    for kind, start, end in kinds:
+        live[kind] += (t_max[start:end] > 0).sum()
+    assert torch.equal(acc[4:], live)
     assert torch.equal(k_ex, p_ex)
     want = intersect.hit_from_raw(pt, pi)
     assert all(torch.equal(a, b) for a, b in zip(hit, want))
