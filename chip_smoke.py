@@ -1086,7 +1086,7 @@ def _north_star_k(dev, scene):
     first shadow sweep of the diffuse phase (the first decided sweep of
     exactly one row per ray)."""
     from rayverb_tpu_torch.config.schema import parse_config
-    from rayverb_tpu_torch.ops import intersect
+    from rayverb_tpu_torch.ops import intersect, trace
     from rayverb_tpu_torch.ops.order_check import order_k, order_keys
     from rayverb_tpu_torch.ops.render import render_fused
     from rayverb_tpu_torch.probe import NORTH_STAR
@@ -1103,7 +1103,10 @@ def _north_star_k(dev, scene):
                 seen[kind] = _k_stats(order_k(order_keys(origins, dirs, t_max, block_aabb)))
         return real(origins, dirs, t_max, block_aabb, decided)
 
-    with mock.patch.object(intersect, "sweep_schedule", record):
+    # the recorder reads each sweep's order on the host: the eager loop,
+    # since a captured bounce cannot wait for the device
+    with mock.patch.object(intersect, "sweep_schedule", record), \
+            mock.patch.object(trace, "_graph_engages", lambda *a: False):
         render_fused(scene, cfg, random_directions(cfg.rays, seed=0), device=dev)
     if set(seen) != {"primary", "bounce", "shadow"}:
         raise AssertionError(f"the north star's batches were not all seen: {sorted(seen)}")
@@ -1794,14 +1797,15 @@ class _SweepCapture:
     of the sweeps it is asked for: by call index (0 is the direct path's
     B-row sweep, 1 the primary sweep) and, under "largest_image", the
     image-phase sweep (odd calls after the primary, while image bounces
-    run) with the most rows. Launches pass through unchanged."""
+    run) with the most rows. Launches pass through unchanged, and the
+    trace runs its eager loop: a replayed bounce makes no call to wrap."""
 
     def __init__(self, calls, image_calls):
         self.calls, self.image_calls = calls, image_calls
         self.kept, self.count = {}, 0
 
     def __enter__(self):
-        from rayverb_tpu_torch.ops import intersect_cuda
+        from rayverb_tpu_torch.ops import intersect_cuda, trace
         from rayverb_tpu_torch.ops.intersect import _bounds
 
         real = intersect_cuda.closest_hit_cuda
@@ -1821,12 +1825,15 @@ class _SweepCapture:
                 self.kept[name] = tuple(x.clone() for x in (o, d, *bounds, order)) + (slices,)
             return real(o, d, packed, aabb, t_max, t_decide, order, slices, **kw)
 
-        self._patch = mock.patch.object(intersect_cuda, "closest_hit_cuda", spy)
-        self._patch.start()
+        self._patches = [mock.patch.object(intersect_cuda, "closest_hit_cuda", spy),
+                         mock.patch.object(trace, "_graph_engages", lambda *a: False)]
+        for p in self._patches:
+            p.start()
         return self
 
     def __exit__(self, *exc):
-        self._patch.stop()
+        for p in self._patches:
+            p.stop()
 
 
 def _datagen_sweeps_vs_plain(soup, kept, npairs):

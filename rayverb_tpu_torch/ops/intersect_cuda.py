@@ -21,7 +21,8 @@ import torch
 
 # launches since import (or since the caller last reset them) of the
 # sweep kernel and of the block-order kernel; each wrapper adds one per
-# launch and nowhere else
+# launch, and a replayed CUDA graph the launches it holds
+# (profiling.add_counts)
 launches = 0
 order_launches = 0
 

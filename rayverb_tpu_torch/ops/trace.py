@@ -31,6 +31,7 @@ Faithfully kept quirks of the reference are those listed in the JAX module
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -185,6 +186,14 @@ def _gather_hit(h: Hit, idx) -> Hit:
     return Hit(t=h.t[idx], index=h.index[idx], hit=h.hit[idx])
 
 
+@functools.lru_cache(maxsize=16)
+def _zhat(device) -> torch.Tensor:
+    """+z on ``device``, made once per device: the direction of dead shadow
+    rows (a copy from the host inside a bounce would not go into phase B's
+    CUDA graph)."""
+    return torch.tensor([0.0, 0.0, 1.0], device=device)
+
+
 def _shadow_rows(mic, intersection, alive, mag, pair=None):
     """Reversed, direction-sorted mic-shadow sweep rows (trace.py:258-283):
     origin at the mic, direction toward the bounce point. Returns (origins,
@@ -205,9 +214,8 @@ def _shadow_rows(mic, intersection, alive, mag, pair=None):
     inv_perm = _inv_permutation(perm)
     mag_eff = mag * (1.0 - 4e-6) - EPSILON
     al1 = alive[:, None]
-    zhat = torch.tensor([0.0, 0.0, 1.0], device=d.device)
     origins = torch.where(al1, mic, _DEAD_ORIGIN)[perm]
-    dirs = torch.where(al1, d, zhat)[perm]
+    dirs = torch.where(al1, d, _zhat(d.device))[perm]
     bounds = torch.where(alive, _sweep_bound(mag), 0.0)[perm]
     decide = torch.where(alive, mag_eff, 0.0)[perm]
     return origins, dirs, bounds, decide, inv_perm, mag_eff
@@ -231,6 +239,116 @@ class _RayState(NamedTuple):
     alive: torch.Tensor     # (N,) bool
 
 
+# the bounce schedule phase B's CUDA graph is made for; trace_variants
+# installs others, which keep the eager loop
+_DEFAULT_SCHEDULE = (_ray_sort_key, _shadow_rows, _sorted_bounce_sweep)
+
+
+def _graph_engages(dev, impl: str, diffuse_bounces: int) -> bool:
+    """Whether phase B's bounces run by replay of one CUDA graph
+    (_BounceGraph): CUDA tensors swept by the kernel, at least two pure
+    diffuse bounces, and the default bounce schedule. Everything else runs
+    the eager loop, with the same results."""
+    return (
+        dev.type == "cuda"
+        and impl in ("auto", "cuda")
+        and diffuse_bounces >= 2
+        and (_ray_sort_key, _shadow_rows, _sorted_bounce_sweep) == _DEFAULT_SCHEDULE
+    )
+
+
+# device -> (the side stream phase B's graphs are captured on, a graph
+# that holds their memory pool open), made once per device (_graph_home)
+_graph_homes: dict = {}
+
+
+def _graph_home(dev):
+    """(capture stream, pool keeper) of ``dev``. A graph's memory pool
+    stays open while some graph holds it, and a pool whose graphs are all
+    gone cannot be captured into again; the keeper, a one-node graph
+    captured into the pool and never replayed, holds it. So each trace's
+    graph reuses the pool's blocks that the last one freed, and the one
+    stream's merge scratch (intersect_cuda._scratch)."""
+    home = _graph_homes.get(dev)
+    if home is None:
+        stream = torch.cuda.Stream(dev)
+        keeper = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            keeper.capture_begin(capture_error_mode="thread_local")
+            torch.zeros(1, device=dev)
+            keeper.capture_end()
+        home = _graph_homes[dev] = (stream, keeper)
+    return home
+
+
+class _BounceGraph:
+    """Phase B's diffuse bounce, ``body`` (state -> (next state, row)),
+    captured once as a CUDA graph over static buffers and replayed once per
+    bounce. The static state starts as a copy of ``state``; each replay
+    runs the same kernels in the same order on it as the eager loop,
+    copies the next state back into it, so the replays chain, and leaves
+    the bounce's row in ``row``, which the next replay overwrites.
+
+    The capture enqueues nothing: the first step is the captured bounce's
+    own replay. The host counters that the capture added (the call's
+    closest_hit.calls and .rows, the kernels' launch counters) stand for
+    that first replay and are added again at each later one; the device
+    counters (the sweeps' pair_sums) are added by the replayed launches."""
+
+    def __init__(self, body, state: _RayState):
+        self.body = body
+        self.state = _RayState(*(x.clone() for x in state))
+        self.row = None
+        before = profiling.host_counts()
+        self._capture()
+        after = profiling.host_counts()
+        self.counts = {k: v - before.get(k, 0) for k, v in after.items()
+                       if v != before.get(k, 0)}
+        self.replays = 0
+
+    def chain(self):
+        """One bounce of the static state, the next state copied back into
+        it; returns the row."""
+        nxt, row = self.body(self.state)
+        for buf, x in zip(self.state, nxt):
+            buf.copy_(x)
+        return row
+
+    def _capture(self):
+        from .intersect_cuda import _scratch
+
+        dev = self.state.pos.device
+        stream, keeper = _graph_home(dev)
+        # the sweeps' merge scratch of the capture stream, made now: made
+        # inside the capture it would land in the graph's pool
+        _scratch(dev, stream.cuda_stream, self.state.pos.shape[0])
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=keeper.pool(), capture_error_mode="thread_local")
+            try:
+                self.row = self.chain()
+            except BaseException:
+                # end the broken capture; the body's error is the one to see
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            self.graph.capture_end()
+
+    def _replay(self):
+        self.graph.replay()
+
+    def step(self):
+        """Run the next bounce; returns its row (volume (N, 8), position
+        (N, 3), time (N,)), valid until the next step."""
+        if self.replays:
+            profiling.add_counts(self.counts)
+        self._replay()
+        self.replays += 1
+        return self.row
+
+
 def _trace_impl(
     soup: TriangleSoup,
     mic,
@@ -243,6 +361,7 @@ def _trace_impl(
     resort: bool = False,
     stats: torch.Tensor | None = None,
     pair_id=None,
+    bounce_graph: bool = True,
 ):
     """The trace loop. With ``consume_row=None`` returns TraceOutputs (dense
     per-ray rows). Otherwise each diffuse row (volume (N,8), position (N,3),
@@ -271,9 +390,20 @@ def _trace_impl(
     those row ranges exactly. With stats=None the sweeps run
     without counters.
 
+    Phase B (the pure diffuse bounces after the image phase) runs by
+    replay of one CUDA graph of its bounce (_BounceGraph) where
+    _graph_engages says so and ``bounce_graph`` is true (False: the eager
+    loop, for tests), with the same kernels on the same data, so the same
+    results; the graph and its buffers go when the call ends. Dense rows
+    are then copied out of the graph's row buffers; a consumer reads each
+    row before the next bounce overwrites it.
+
     Each bounce is the span rv.bounce (attrs index, phase 'image' or
-    'diffuse'); the image gate's compaction, where the host waits for the
-    device, is the span rv.sync (site 'image_gate')."""
+    'diffuse', and for phase B graph); the capture is the span
+    rv.graph_capture; the image gate's compaction, where the host waits
+    for the device, is the span rv.sync (site 'image_gate'). The counters
+    bounces.graph and bounces.eager count the call's bounces by how they
+    ran."""
     dev = soup.device
     mic = _f32(mic, dev)
     source = _f32(source, dev)
@@ -344,6 +474,20 @@ def _trace_impl(
             alive=alive_new,
         )
         return next_state, (volume_out, position_out, time_out)
+
+    def diffuse_bounce(state):
+        """One bounce of phase B: (next state, row)."""
+        bounce = sorted_bounce_hit(state.pos, state.dir, state.alive, True)
+        t_safe = torch.where(bounce.hit, bounce.t, 0.0)
+        intersection = state.pos + state.dir * t_safe[:, None]
+        alive2 = state.alive & bounce.hit
+        mag = torch.linalg.norm(mic_rows - intersection, dim=-1)
+        sh_origin, sh_d, sh_bound, sh_decide, sh_inv, sh_mag_eff = _shadow_rows(
+            mic_rows, intersection, alive2, mag, pair_id
+        )
+        shadow = sweep(sh_origin, sh_d, sh_bound, sh_decide, kinds=((_SHADOW, 0, n),))
+        vis = _visible_from_hit(_gather_hit(shadow, sh_inv), sh_mag_eff)
+        return diffuse_impulse(state, bounce, vis, t_safe)
 
     state = _RayState(
         pos=src_rows.clone(),
@@ -488,23 +632,29 @@ def _trace_impl(
             state, row = diffuse_impulse(state, bounce, vis, t_safe)
             emit_row(row + extra)
 
-    # ---- phase B: pure diffuse bounces ----
-    for index in range(n_image_bounces, nreflections):
-        with profiling.span("rv.bounce", index=index, phase="diffuse"):
-            bounce = sorted_bounce_hit(state.pos, state.dir, state.alive, True)
-            t_safe = torch.where(bounce.hit, bounce.t, 0.0)
-            intersection = state.pos + state.dir * t_safe[:, None]
-            alive2 = state.alive & bounce.hit
-            mag = torch.linalg.norm(mic_rows - intersection, dim=-1)
-            sh_origin, sh_d, sh_bound, sh_decide, sh_inv, sh_mag_eff = _shadow_rows(
-                mic_rows, intersection, alive2, mag, pair_id
-            )
-            shadow = sweep(
-                sh_origin, sh_d, sh_bound, sh_decide, kinds=((_SHADOW, 0, n),)
-            )
-            vis = _visible_from_hit(_gather_hit(shadow, sh_inv), sh_mag_eff)
-            state, row = diffuse_impulse(state, bounce, vis, t_safe)
+    # ---- phase B: pure diffuse bounces, by replay of one CUDA graph of
+    # the bounce where it engages (_graph_engages), else eagerly ----
+    diffuse = range(n_image_bounces, nreflections)
+    graphed = bounce_graph and _graph_engages(dev, impl, len(diffuse))
+    if graphed and consume_row is None:
+        # a replay overwrites its row: the dense rows keep copies
+        def emit_row(row):
+            diffuse_rows.append(tuple(x.clone() for x in row))
+    graph = None
+    for index in diffuse:
+        with profiling.span("rv.bounce", index=index, phase="diffuse", graph=graphed):
+            if not graphed:
+                state, row = diffuse_bounce(state)
+            else:
+                if graph is None:
+                    with profiling.span("rv.graph_capture"):
+                        graph = _BounceGraph(diffuse_bounce, state)
+                row = graph.step()
             emit_row(row + extra)
+    del graph
+    replayed = len(diffuse) if graphed else 0
+    profiling.count("bounces.graph", replayed)
+    profiling.count("bounces.eager", nreflections - replayed)
 
     # pad image slots when nreflections < NUM_IMAGE_SOURCE - 1
     while len(image_vol) < NUM_IMAGE_SOURCE:

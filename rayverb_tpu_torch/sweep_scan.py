@@ -48,10 +48,12 @@ def record_sweeps(cell):
     tuples (origins, dirs, packed, aabb, t_max, t_decide, order, slices),
     cloned, in launch order (an absent bound kept as its +inf or 0
     tensor)."""
+    from unittest import mock
+
     import torch
 
     from .config.schema import load_config
-    from .ops import intersect_cuda
+    from .ops import intersect_cuda, trace
     from .ops.intersect import _bounds
     from .ops.render import render_fused
     from .scene import load_scene
@@ -78,8 +80,10 @@ def record_sweeps(cell):
 
     intersect_cuda.closest_hit_cuda = recording
     try:
-        render_fused(scene, cfg, random_directions(cfg.rays, seed=cfg.seed),
-                     device="cuda")
+        # the eager loop: a replayed bounce makes no call to record
+        with mock.patch.object(trace, "_graph_engages", lambda *a: False):
+            render_fused(scene, cfg, random_directions(cfg.rays, seed=cfg.seed),
+                         device="cuda")
     finally:
         intersect_cuda.closest_hit_cuda = kernel
     return cfg, batches

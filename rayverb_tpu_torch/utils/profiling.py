@@ -30,9 +30,11 @@ pair tests and the rows that enter it live, t_max > 0, by row kind, added
 on the device into the call's accumulator, ``pair_sums``, and copied to
 the host once, before the call's own final pull: ``stage``), ``hist.len``
 and ``finalize.bucket`` (render_fused's static histogram bound and the
-samples its finalize ran on), and ``launches.<kernel>``, the call's deltas
-of the module counters that the kernel wrappers keep (LAUNCH_COUNTERS). A
-CUDA-graph replay site would count ``launches.graph`` once per replay.
+samples its finalize ran on), ``bounces.graph`` and ``bounces.eager``
+(the trace's bounces, by replay of phase B's CUDA graph or eagerly), and
+``launches.<kernel>``, the call's deltas of the module counters that the
+kernel wrappers keep (LAUNCH_COUNTERS). A CUDA graph's replay adds again
+the host counts that its capture added (``host_counts``, ``add_counts``).
 """
 
 from __future__ import annotations
@@ -241,6 +243,28 @@ def count(name: str, n: int = 1):
     """Add ``n`` to the current call's counter ``name``."""
     if _current is not None:
         _current.counters[name] += n
+
+
+def host_counts() -> dict:
+    """The host's counters now: the kernel wrappers' launch counters
+    (LAUNCH_COUNTERS) and the current call's counters."""
+    out = _launch_counts()
+    if _current is not None:
+        out.update(_current.counters)
+    return out
+
+
+def add_counts(delta: dict):
+    """Add ``delta``, a difference of two host_counts, to the counters
+    again: what a replayed CUDA graph launches and counts, which its
+    capture counted once."""
+    for name, n in delta.items():
+        if name in LAUNCH_COUNTERS:
+            mod, attr = LAUNCH_COUNTERS[name]
+            module = sys.modules[mod]
+            setattr(module, attr, getattr(module, attr) + n)
+        else:
+            count(name, n)
 
 
 def mark(key: str):
