@@ -137,18 +137,7 @@ Phases, each printed as one JSON line with its wall time:
  18. parity   kernel_parity: the sweep kernel against the float64
               Moller-Trumbore oracle on the card, 2,048 rows of mixed kinds
               on the vault and on the hall, scripts/kernel_parity.py's gates
- 19. variants the trace's other sweep schedules (trace_variants.py)
-              through the kernels, each run counted: the north star with
-              the horizon split at 0.12 of the hall's diagonal (48 sweeps
-              and order launches: 33 + 15 second passes; executed pairs,
-              peak memory), bit for bit against phase 8's warm IR; the
-              vault with the forward shadow rays, the octant, cell8 and
-              cell64 sort keys and no resort, each against the default
-              render (bit for bit; the forward shadow rays within -60
-              dB), and the vault's dense trace in both shadow
-              orientations (bounce chains and images bit for bit, the
-              count of differing shadow verdicts)
- 20. kernels  one JSON line per the port's kernel table (the sweep, the
+ 19. kernels  one JSON line per the port's kernel table (the sweep, the
               block order, the sweep's epilogue with no launch of its own
               beside the card's launch floor, and the biquad scan); the
               device line also carries the
@@ -2254,116 +2243,6 @@ def _phase_kernel_parity(ph, dev, hall_scene):
         raise AssertionError(f"the sweep kernel failed a float64 gate: {recs}")
 
 
-# the trace's other sweep schedules (rayverb_tpu_torch/trace_variants.py):
-# the one the north star runs, and those the vault runs
-NORTH_STAR_VARIANT = "horizon_0.12"
-VAULT_VARIANTS = ("shadow_fwd", "sort_octant", "sort_cell8", "sort_cell64", "no_resort")
-
-
-def _phase_trace_variants(ph, dev, scene, north_ir):
-    """The trace's other sweep schedules through the kernels, each run
-    counted (_counted). The north star (``scene``: the hall) under
-    NORTH_STAR_VARIANT, executed pairs on: bit for bit the north_star
-    phase's warm IR of the same rays (``north_ir``), with
-    trace_variants.sweep_count launches of each kernel (33 + 15 second
-    passes) and the live rows of each pass. The vault under each of
-    VAULT_VARIANTS against its default render: the sort keys and no-resort
-    bit for bit, the forward shadow rays within -60 dB; and the dense trace
-    of the vault in both shadow orientations: the same bounce chains and
-    image records bit for bit, with the count of differing shadow
-    verdicts (rows that emit in one orientation only). Returns the horizon
-    run's record."""
-    import numpy as np
-    import torch
-
-    from rayverb_tpu_torch import trace_variants
-    from rayverb_tpu_torch.config.schema import load_config, parse_config
-    from rayverb_tpu_torch.ops import render, trace
-    from rayverb_tpu_torch.ops.intersect import soup_from_scene, sweep_slices
-    from rayverb_tpu_torch.probe import NORTH_STAR
-    from rayverb_tpu_torch.scene import load_scene
-    from rayverb_tpu_torch.utils.directions import random_directions
-
-    cfg = parse_config(json.dumps(NORTH_STAR))
-    dirs = random_directions(cfg.rays, seed=0)
-    soup = soup_from_scene(scene, device=dev)
-    live = []
-    with trace_variants.applied(NORTH_STAR_VARIANT, live):
-        (ir, info), north = _counted(lambda: render.render_fused(
-            scene, cfg, dirs, device=dev, soup=soup, stats=True))
-    expected = trace_variants.sweep_count(NORTH_STAR_VARIANT, cfg.reflections) * info["chunks"]
-    north.update({
-        "variant": NORTH_STAR_VARIANT, "expected_sweeps": expected,
-        "pass1_live_rows": [int(a) for a, _ in live],
-        "pass2_live_rows": [int(u) for _, u in live],
-        "slices_per_bounce_sweep": sweep_slices(cfg.rays, soup.block_aabb.shape[0]),
-        "trace_bin_s": info["timings"]["trace_bin"],
-        "memory_estimate_bytes": info["memory_estimate_bytes"],
-        "pair_tests_executed": info["pair_tests_executed"],
-        "bit_identical": bool(np.array_equal(ir, north_ir)),
-    })
-    del soup
-    ph.out["north_star_horizon"] = north
-    _emit({"trace_variants_north_star": north})
-    if not north["bit_identical"]:
-        raise AssertionError(f"the horizon split changed the north star's IR: "
-                             f"{_ir_error(ir, north_ir)} of peak")
-    if not north["launches"] == north["order_launches"] == expected:
-        raise AssertionError(f"the horizon north star's sweeps did not all go "
-                             f"through the kernels: {north}")
-
-    vcfg = load_config(VAULT[0])
-    vault = load_scene(VAULT[1], VAULT[2])
-    vdirs = random_directions(vcfg.rays, seed=vcfg.seed)
-    expected = trace.sweep_count(vcfg.reflections)
-
-    def vault_render():
-        return render.render_fused(vault, vcfg, vdirs, device=dev)[0]
-
-    want, base = _counted(vault_render)
-    runs = {"default": base}
-    for name in VAULT_VARIANTS:
-        with trace_variants.applied(name):
-            got, run = _counted(vault_render)
-        run.update(bit_identical=bool(np.array_equal(got, want)),
-                   max_err_over_peak=_ir_error(got, want))
-        runs[name] = run
-        if name != "shadow_fwd" and not run["bit_identical"]:
-            raise AssertionError(f"vault {name} differs from the default render: {run}")
-        if not np.all(np.isfinite(got)) or run["max_err_over_peak"] >= 1e-3:
-            raise AssertionError(f"vault {name} is not within -60 dB of the default: {run}")
-    ph.out["vault"] = runs
-    for name, run in runs.items():
-        if run["launches"] != expected or run["order_launches"] != expected:
-            raise AssertionError(f"vault {name}: its sweeps did not all go through "
-                                 f"the kernels: {run}")
-
-    def dense():
-        return trace.trace(vault, vcfg.mic_position, vcfg.source_position, vdirs,
-                           vcfg.reflections, device=dev)
-
-    rev, rev_run = _counted(dense)
-    with trace_variants.applied("shadow_fwd"):
-        fwd, fwd_run = _counted(dense)
-    # the shadow verdicts set only the emitted volumes and times
-    unequal = [f for f in trace.TraceOutputs._fields
-               if f not in ("diffuse_volume", "diffuse_time")
-               and not torch.equal(getattr(fwd, f), getattr(rev, f))]
-    emit_rev, emit_fwd = rev.diffuse_time != 0, fwd.diffuse_time != 0
-    ph.out["shadow_verdicts"] = {
-        "rows": emit_rev.numel(),
-        "emit_reversed": int(emit_rev.sum()), "emit_forward": int(emit_fwd.sum()),
-        "differing": int((emit_rev != emit_fwd).sum()),
-        "forward_only": int((emit_fwd & ~emit_rev).sum()),
-        "unequal_fields": unequal, "runs": {"reversed": rev_run, "forward": fwd_run},
-    }
-    del rev, fwd
-    if unequal:
-        raise AssertionError(f"the shadow orientation changed bounce chains or images: "
-                             f"{ph.out['shadow_verdicts']}")
-    return north
-
-
 def main() -> int:
     threading.Thread(target=_watchdog, daemon=True).start()
     import torch
@@ -2453,8 +2332,6 @@ def main() -> int:
             corpus_run = _phase_corpus(ph, tmp)
         with Phase("kernel_parity") as ph:
             _phase_kernel_parity(ph, dev, hall_scene)
-        with Phase("trace_variants") as ph:
-            variants_run = _phase_trace_variants(ph, dev, hall_scene, north_ir)
         del north_ir
     except Exception:
         traceback.print_exc()
@@ -2471,8 +2348,7 @@ def main() -> int:
     paths = {"main_path": runs[-1], "hrtf_main_path": hrtf_runs[-1], "north_star": north[-1],
              "modular_main_path": modular_runs[-1], "datagen": datagen_runs[-1],
              "sharded": sharded_runs[1], "sharded_vault_scan": sharded_runs[2],
-             "datagen_mesh": datagen_mesh_run, "corpus": corpus_run,
-             "trace_variants": variants_run}
+             "datagen_mesh": datagen_mesh_run, "corpus": corpus_run}
     _emit({"kernels": [{
         "name": "closest_hit",
         "route": "cuda",

@@ -688,8 +688,9 @@ def render_bytes(nrays: int, nreflections: int, nblocks: int) -> int:
 
 
 def ray_schedule(directions: torch.Tensor, nblocks: int):
-    """The ray schedule that render_fused, trace.trace, the sharded render
-    and the batched datagen share; ray order is semantically free.
+    """The ray schedule that _prepare (render_fused, the sharded render and
+    the batched datagen) and trace.trace share; ray order is semantically
+    free.
     directions: (N, 3), or (B, N, 3) for B pairs' ray sets, a tensor on the
     device that traces them. Returns (order, resort): ``order`` the Morton
     permutation (utils.directions.morton_order_torch, made on that device)
@@ -741,6 +742,101 @@ def memory_budget(dev):
     return int(MEMORY_SHARE * torch.cuda.get_device_properties(dev).total_memory)
 
 
+class _Prepared(NamedTuple):
+    """What _prepare decides for one call."""
+
+    bin_mode: str
+    spec: AttenSpec
+    soup: TriangleSoup
+    length: int                # histogram_length
+    directions: torch.Tensor   # (rows, 3) on the device, in trace order
+    resort: bool
+    include_diffuse: bool
+    include_images: bool
+    pair_stats: torch.Tensor | None  # profiling.pair_sums()
+
+    @property
+    def nblocks(self) -> int:
+        return self.soup.block_aabb.shape[0]
+
+
+def _prepare(scene, config: RenderConfig, directions, dev, *, hrtf_table=None,
+             bin_mode: str | None = None, soup: TriangleSoup | None = None) -> _Prepared:
+    """The per-call preparation of render_fused, the sharded render and the
+    batched datagen, run inside the caller's span rv.prepare: bin_mode
+    resolved (None reads RAYVERB_BIN) and checked; the attenuation spec
+    (span rv.atten_spec); the sweep table (span rv.sweep_table) unless
+    ``soup`` is given; the histogram bound (counter hist.len); the rays on
+    ``dev`` in ray_schedule's order, with its resort decided on the whole
+    population (span rv.ray_order): directions (N, 3) come back as (N, 3)
+    rows, (B, N, 3) for B pairs' ray sets as pair-major (B * N, 3) rows;
+    the output mode's flags; and the call's executed-pair accumulator.
+    Raises ValueError on an unknown bin_mode and on a set without rays."""
+    if bin_mode is None:
+        bin_mode = _bin_mode()
+    if bin_mode not in ("sorted", "scatter"):
+        raise ValueError(f"bin_mode must be 'sorted' or 'scatter', not {bin_mode!r}")
+    shape = np.shape(directions)
+    if len(shape) < 2 or shape[-2] == 0:
+        raise ValueError("need at least one ray")
+    with profiling.span("rv.atten_spec"):
+        spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
+    if soup is None:
+        with profiling.span("rv.sweep_table"):
+            soup = soup_from_scene(scene, device=dev)
+    length = histogram_length(scene, config.reflections, config.sample_rate)
+    profiling.count("hist.len", length)
+    with profiling.span("rv.ray_order"):
+        directions = _f32(directions, dev)
+        order, resort = ray_schedule(directions, soup.block_aabb.shape[0])
+        directions = directions.reshape(-1, 3)
+        if order is not None:
+            directions = directions[order]
+    return _Prepared(
+        bin_mode, spec, soup, length, directions, resort,
+        include_diffuse=config.output_mode in (OutputMode.ALL, OutputMode.DIFFUSE_ONLY),
+        include_images=config.output_mode in (OutputMode.ALL, OutputMode.IMAGE_ONLY),
+        pair_stats=profiling.pair_sums(),
+    )
+
+
+def _trace_chunks(prep: _Prepared, config: RenderConfig, directions, chunk: int, impl: str,
+                  consume_images):
+    """Trace and bin ``directions`` (rows of prep.directions) in consecutive
+    chunks of ``chunk`` rays, one span rv.trace each (_fused_trace_bin),
+    the histogram and the diffuse time stats carried across chunks; each
+    chunk's per-ray image records go to ``consume_images`` before the next
+    chunk runs. Returns (hist (C, 8, L), None without rows; max_t, min_t:
+    0-dim device tensors)."""
+    dev = directions.device
+    hist = None
+    max_t = torch.zeros((), device=dev)
+    min_t = torch.tensor(float("inf"), device=dev)
+    for first in range(0, directions.shape[0], chunk):
+        with profiling.span("rv.trace", first=first):
+            hist, mx, mn, part = _fused_trace_bin(
+                prep.soup,
+                config.mic_position,
+                config.source_position,
+                directions[first : first + chunk],
+                prep.spec,
+                nreflections=config.reflections,
+                length=prep.length,
+                sample_rate=config.sample_rate,
+                impl=impl,
+                include_diffuse=prep.include_diffuse,
+                resort=prep.resort,
+                bin_mode=prep.bin_mode,
+                init_hist=hist,
+                stats=prep.pair_stats,
+            )
+            max_t = torch.maximum(max_t, mx)
+            min_t = torch.minimum(min_t, mn)
+            consume_images(part)
+            del part
+    return hist, max_t, min_t
+
+
 # render_fused's flat timings (info["timings"]) and the spans they read;
 # trace_bin is a mark (profiling.mark) and total the root's wall
 FLAT_TIMINGS = {"time_stats": "rv.time_stats", "finalize": "rv.finalize",
@@ -775,9 +871,10 @@ def render_fused(
     RAYVERB_BIN.
 
     The call is the root span rv.render (utils.profiling): rv.prepare
-    (rv.atten_spec, rv.sweep_table, rv.ray_order), one rv.trace per chunk
-    (rv.bounce, rv.closest_hit, rv.bin), rv.time_stats, rv.finalize
-    (rv.dedup), rv.pull, and rv.sync where the host waits for the device.
+    (_prepare: rv.atten_spec, rv.sweep_table, rv.ray_order), one rv.trace
+    per chunk (rv.bounce, rv.closest_hit, rv.bin), rv.time_stats,
+    rv.finalize (rv.dedup), rv.pull, and rv.sync where the host waits for
+    the device.
     With stats=True the info dict gains ``timings``: the device-
     synchronised phase walls trace_bin, time_stats, finalize, pull and
     total, the call's ``spans`` and ``counters`` (the executed pair tests
@@ -795,79 +892,35 @@ def render_fused(
             profiling.call("rv.render", dev, stats=stats, timings=timings,
                            flat=FLAT_TIMINGS):
         with profiling.span("rv.prepare"):
-            if bin_mode is None:
-                bin_mode = _bin_mode()
-            if bin_mode not in ("sorted", "scatter"):
-                raise ValueError(
-                    f"bin_mode must be 'sorted' or 'scatter', not {bin_mode!r}")
-            with profiling.span("rv.atten_spec"):
-                spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
-            if soup is None:
-                with profiling.span("rv.sweep_table"):
-                    soup = soup_from_scene(scene, device=dev)
-            length = histogram_length(scene, config.reflections, config.sample_rate)
-            profiling.count("hist.len", length)
-
-            n = len(directions)
-            if n == 0:
-                raise ValueError("need at least one ray")
-            nblocks = soup.block_aabb.shape[0]
-            with profiling.span("rv.ray_order"):
-                directions = _f32(directions, dev)
-                order, resort = ray_schedule(directions, nblocks)
-                if order is not None:
-                    directions = directions[order]
-            chunk = choose_ray_chunk(n, config.reflections, nblocks, ray_chunk,
+            prep = _prepare(scene, config, directions, dev, hrtf_table=hrtf_table,
+                            bin_mode=bin_mode, soup=soup)
+            n = prep.directions.shape[0]
+            chunk = choose_ray_chunk(n, config.reflections, prep.nblocks, ray_chunk,
                                      memory_budget(dev))
-            include_diffuse = config.output_mode in (OutputMode.ALL,
-                                                     OutputMode.DIFFUSE_ONLY)
-            pair_stats = profiling.pair_sums()
 
-        hist = None
-        max_t_dev = torch.zeros((), device=dev)
-        min_t_dev = torch.tensor(float("inf"), device=dev)
         parts = []
-        for first in range(0, n, chunk):
-            with profiling.span("rv.trace", first=first):
-                hist, mx, mn, part = _fused_trace_bin(
-                    soup,
-                    config.mic_position,
-                    config.source_position,
-                    directions[first : first + chunk],
-                    spec,
-                    nreflections=config.reflections,
-                    length=length,
-                    sample_rate=config.sample_rate,
-                    impl=impl,
-                    include_diffuse=include_diffuse,
-                    resort=resort,
-                    bin_mode=bin_mode,
-                    init_hist=hist,
-                    stats=pair_stats,
-                )
-                max_t_dev = torch.maximum(max_t_dev, mx)
-                min_t_dev = torch.minimum(min_t_dev, mn)
-                parts.append(part)
+        hist, max_t_dev, min_t_dev = _trace_chunks(prep, config, prep.directions, chunk,
+                                                   impl, parts.append)
         imgs = parts[0] if len(parts) == 1 else _Images(*map(torch.cat, zip(*parts)))
         del parts
         profiling.mark("trace_bin")
         with profiling.span("rv.sync", site="trace_stats"):
             max_t, min_t = float(max_t_dev), float(min_t_dev)
         channels, info = _finish_render(
-            hist, imgs, max_t, min_t, config, spec, dev,
-            length=length, remove_direct=config.remove_direct,
+            hist, imgs, max_t, min_t, config, prep, dev, remove_direct=config.remove_direct,
         )
         info.update({
             "sweeps": sweep_count(config.reflections) * -(-n // chunk),
             "ray_chunk": chunk,
             "chunks": -(-n // chunk),
-            "bin_mode": bin_mode,
+            "bin_mode": prep.bin_mode,
         })
     if stats:
         info["timings"] = timings
-        info["pair_tests_issued"] = sweep_pair_tests(n, soup.num_padded, config.reflections)
+        info["pair_tests_issued"] = sweep_pair_tests(n, prep.soup.num_padded,
+                                                     config.reflections)
         info["ray_bounces_per_s"] = n * config.reflections / max(timings["total"], 1e-9)
-        info["memory_estimate_bytes"] = render_bytes(chunk, config.reflections, nblocks)
+        info["memory_estimate_bytes"] = render_bytes(chunk, config.reflections, prep.nblocks)
         info.update(executed_pairs(timings))
     return channels, info
 
@@ -881,18 +934,18 @@ def executed_pairs(timings: dict) -> dict:
 
 
 def _finish_render(hist, imgs: _Images, max_t: float, min_t: float,
-                   config: RenderConfig, spec: AttenSpec, dev, *, length: int,
-                   remove_direct: bool):
+                   config: RenderConfig, prep: _Prepared, dev, *, remove_direct: bool):
     """Everything of a render after its trace: the image time stats and
     predelay, the content bucket, the image dedup and binning, the filter
     bank and the host IR (render.py:1157-1299 after the trace). hist: the
-    (C, 8, length) diffuse histogram; max_t, min_t: the diffuse time stats;
-    imgs: the image records ((N, S, ...) per ray, or flat rows already
-    admitted, which must come with remove_direct False). Returns (channels
-    (C, T') float32 numpy, info). Its spans are rv.time_stats, rv.finalize
-    (which in a stats call ends with a device synchronisation) and rv.pull,
-    before which the call's executed-pair counters are staged."""
-    include_images = config.output_mode in (OutputMode.ALL, OutputMode.IMAGE_ONLY)
+    (C, 8, prep.length) diffuse histogram; max_t, min_t: the diffuse time
+    stats; imgs: the image records ((N, S, ...) per ray, or flat rows
+    already admitted, which must come with remove_direct False). Returns
+    (channels (C, T') float32 numpy, info). Its spans are rv.time_stats,
+    rv.finalize (which in a stats call ends with a device synchronisation)
+    and rv.pull, before which the call's executed-pair counters are
+    staged."""
+    spec, length, include_images = prep.spec, prep.length, prep.include_images
     with profiling.span("rv.time_stats"):
         mic_t = torch.as_tensor(np.asarray(config.mic_position, np.float32), device=dev)
         # direct-path + image times take part in predelay like the

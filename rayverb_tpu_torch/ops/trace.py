@@ -34,7 +34,6 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..constants import (
@@ -221,11 +220,9 @@ def _shadow_rows(mic, intersection, alive, mag, pair=None):
     return origins, dirs, bounds, decide, inv_perm, mag_eff
 
 
-def _sorted_bounce_sweep(sweep, soup, key, origins, dirs, t_max, kinds):
+def _sorted_bounce_sweep(sweep, key, origins, dirs, t_max, kinds):
     """A bounce sweep of rows sorted by ``key`` (stable; a sweep-local
-    permutation), its Hit back in row order. ``sweep`` is _trace_impl's.
-    The JAX trace's other bounce schedules (its horizon split) replace
-    this function in trace_variants, which is why it takes ``soup``."""
+    permutation), its Hit back in row order. ``sweep`` is _trace_impl's."""
     perm = torch.argsort(key, stable=True)
     hs = sweep(origins[perm], dirs[perm], t_max[perm], kinds=kinds)
     return _gather_hit(hs, _inv_permutation(perm))
@@ -239,22 +236,12 @@ class _RayState(NamedTuple):
     alive: torch.Tensor     # (N,) bool
 
 
-# the bounce schedule phase B's CUDA graph is made for; trace_variants
-# installs others, which keep the eager loop
-_DEFAULT_SCHEDULE = (_ray_sort_key, _shadow_rows, _sorted_bounce_sweep)
-
-
 def _graph_engages(dev, impl: str, diffuse_bounces: int) -> bool:
     """Whether phase B's bounces run by replay of one CUDA graph
-    (_BounceGraph): CUDA tensors swept by the kernel, at least two pure
-    diffuse bounces, and the default bounce schedule. Everything else runs
-    the eager loop, with the same results."""
-    return (
-        dev.type == "cuda"
-        and impl in ("auto", "cuda")
-        and diffuse_bounces >= 2
-        and (_ray_sort_key, _shadow_rows, _sorted_bounce_sweep) == _DEFAULT_SCHEDULE
-    )
+    (_BounceGraph): CUDA tensors swept by the kernel and at least two pure
+    diffuse bounces. Everything else runs the eager loop, with the same
+    results."""
+    return dev.type == "cuda" and impl in ("auto", "cuda") and diffuse_bounces >= 2
 
 
 # device -> (the side stream phase B's graphs are captured on, a graph
@@ -442,7 +429,7 @@ def _trace_impl(
         if not (resort and do_sort):
             return sweep(o, dirv, b, kinds=kinds)
         key = _ray_sort_key(pos, dirv, lo_b, inv_span)
-        return _sorted_bounce_sweep(sweep, soup, key, o, dirv, b, kinds)
+        return _sorted_bounce_sweep(sweep, key, o, dirv, b, kinds)
 
     def diffuse_impulse(state, hit, vis, t_safe):
         """Per-bounce diffuse Impulse fields (kernel.cpp:459-501)."""

@@ -38,16 +38,13 @@ import time
 import numpy as np
 import torch
 
-from ..config.schema import OutputMode, RenderConfig
+from ..config.schema import RenderConfig
 from ..constants import NUM_BANDS, NUM_IMAGE_SOURCE
 from ..device import resolve_device
-from ..ops.attenuate import _f32
 from ..ops.filters import KERNEL_LENGTH
-from ..ops.intersect import soup_from_scene
 from ..ops.render import (
     _U32,
     AttenSpec,
-    _bin_mode,
     _channel,
     _dedup_rows,
     _dense_from_runs,
@@ -57,17 +54,14 @@ from ..ops.render import (
     _head,
     _Images,
     _mix32,
+    _prepare,
     _segmented_run_totals,
     _sorted_hist,
     _time_bins,
     chain_hashes,
     executed_pairs,
-    histogram_length,
-    make_atten_spec,
     memory_budget,
-    ray_schedule,
     render_bytes,
-    resort_sweeps,
     sweep_pair_tests,
 )
 from ..ops.trace import _trace_impl, sweep_count
@@ -382,10 +376,6 @@ def _render_irs(scene, config, sources, mics, directions, *, hrtf_table, impl, d
                 microbatch, bin_mode):
     """render_irs_batched's single-device body: (irs, contents, info
     without the timings)."""
-    if bin_mode is None:
-        bin_mode = _bin_mode()
-    if bin_mode not in ("sorted", "scatter"):
-        raise ValueError(f"bin_mode must be 'sorted' or 'scatter', not {bin_mode!r}")
     sources = np.asarray(sources, np.float32)
     mics = np.asarray(mics, np.float32)
     if not isinstance(directions, torch.Tensor):
@@ -397,33 +387,20 @@ def _render_irs(scene, config, sources, mics, directions, *, hrtf_table, impl, d
     if sources.shape != (b, 3) or mics.shape != (b, 3):
         raise ValueError(f"sources and mics must be ({b}, 3), got {sources.shape} "
                          f"and {mics.shape}")
+    nrefl = config.reflections
     with profiling.span("rv.prepare"):
-        with profiling.span("rv.atten_spec"):
-            spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
-        with profiling.span("rv.sweep_table"):
-            soup = soup_from_scene(scene, device=dev)
-        nblocks = soup.block_aabb.shape[0]
-        nrefl = config.reflections
-        length = histogram_length(scene, nrefl, config.sample_rate)
-        # the (B * N, 3) rows on the device, pair-major, each pair's rays in
-        # render_fused's order; whether to re-sort each bounce sweep is
-        # decided on the whole population (JAX datagen.py:258-260)
-        with profiling.span("rv.ray_order"):
-            directions = _f32(directions, dev)
-            order, _ = ray_schedule(directions, nblocks)
-            directions = directions.reshape(b * n, 3)
-            if order is not None:
-                directions = directions[order]
-        resort = resort_sweeps(b * n, nblocks)
-        per = choose_pairs_per_pass(b, n, nrefl, nblocks, length, spec.nchannels,
+        # the (B * N, 3) rows pair-major, each pair's rays in render_fused's
+        # order; whether to re-sort each bounce sweep is decided on the
+        # whole population (JAX datagen.py:258-260)
+        prep = _prepare(scene, config, directions, dev, hrtf_table=hrtf_table,
+                        bin_mode=bin_mode)
+        spec, length = prep.spec, prep.length
+        per = choose_pairs_per_pass(b, n, nrefl, prep.nblocks, length, spec.nchannels,
                                     microbatch, memory_budget(dev))
-        include_diffuse = config.output_mode in (OutputMode.ALL, OutputMode.DIFFUSE_ONLY)
-        include_images = config.output_mode in (OutputMode.ALL, OutputMode.IMAGE_ONLY)
         with profiling.span("rv.filter_params"):
             params, flips, nfft, filter_method = _device_filter_params(
                 config.filter, float(config.sample_rate), float(config.hipass), length,
                 str(dev), _finalize_method(config.filter))
-        pair_stats = profiling.pair_sums()
     t_dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
 
     irs, contents = [], []
@@ -432,17 +409,17 @@ def _render_irs(scene, config, sources, mics, directions, *, hrtf_table, impl, d
         with profiling.span("rv.inputs"):
             mics_l = t_dev(mics[first:first + bl])
             sources_l = t_dev(sources[first:first + bl])
-            dirs_l = directions[first * n:(first + bl) * n]
+            dirs_l = prep.directions[first * n:(first + bl) * n]
             pair_id = torch.arange(bl, device=dev).repeat_interleave(n)
         hist, imgs, tmin, tmax = _batched_trace_bin(
-            soup, mics_l, sources_l, dirs_l, pair_id, spec,
+            prep.soup, mics_l, sources_l, dirs_l, pair_id, spec,
             nbatch=bl, nreflections=nrefl, length=length,
-            sample_rate=config.sample_rate, impl=impl, bin_mode=bin_mode,
-            resort=resort, include_diffuse=include_diffuse, stats=pair_stats)
+            sample_rate=config.sample_rate, impl=impl, bin_mode=prep.bin_mode,
+            resort=prep.resort, include_diffuse=prep.include_diffuse, stats=prep.pair_stats)
         with profiling.phase("rv.dedup"):
             hist, content = _finalize_hist_batched(
                 hist, imgs, pair_id, mics_l, spec, config.sample_rate, tmin, tmax,
-                nbatch=bl, length=length, include_images=include_images,
+                nbatch=bl, length=length, include_images=prep.include_images,
                 remove_direct=config.remove_direct, trim_predelay=config.trim_predelay)
             del imgs
         with profiling.phase("rv.finalize"):
@@ -464,11 +441,12 @@ def _render_irs(scene, config, sources, mics, directions, *, hrtf_table, impl, d
         "passes": passes,
         "sweeps": sweep_count(nrefl) * passes,
         "histogram_length": length,
-        "bin_mode": bin_mode,
+        "bin_mode": prep.bin_mode,
         "filter_method": filter_method,
         "device": str(dev),
-        "memory_plan_bytes": datagen_bytes(per, n, nrefl, nblocks, length, spec.nchannels),
-        "pair_tests_issued": b * sweep_pair_tests(n, soup.num_padded, nrefl),
+        "memory_plan_bytes": datagen_bytes(per, n, nrefl, prep.nblocks, length,
+                                           spec.nchannels),
+        "pair_tests_issued": b * sweep_pair_tests(n, prep.soup.num_padded, nrefl),
     }
     return irs, contents, info
 

@@ -8,7 +8,7 @@ rank calls the same function with the same inputs:
   - the scene is replicated: every rank builds its own soup
   - the rays are Morton-ordered once over the whole population, identically
     on every rank, and each rank traces one contiguous range of them with
-    the single-device chunk loop (render.py's ``_fused_trace_bin``, chunked
+    the single-device chunk loop (render.py's ``_trace_chunks``, chunked
     by ``choose_ray_chunk`` against the card's memory budget); a range may
     be shorter than the others, or empty when there are fewer rays than
     ranks
@@ -50,25 +50,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config.schema import OutputMode
 from ..constants import NUM_BANDS, NUM_IMAGE_SOURCE
 from ..device import resolve_device
-from ..ops.attenuate import _f32
-from ..ops.intersect import soup_from_scene
 from ..ops.render import (
     _admitted,
-    _bin_mode,
     _dedup_rows,
     _finish_render,
-    _fused_trace_bin,
     _Images,
+    _prepare,
+    _trace_chunks,
     FLAT_TIMINGS,
     choose_ray_chunk,
     executed_pairs,
-    histogram_length,
-    make_atten_spec,
     memory_budget,
-    ray_schedule,
     sweep_pair_tests,
 )
 from ..ops.trace import sweep_count
@@ -310,71 +304,33 @@ def _render_sharded(scene, config, directions, *, mesh, hrtf_table, impl, dev, r
     d = mesh.size()
     if int(image_budget) < 1:
         raise ValueError(f"image_budget must be >= 1, got {image_budget}")
-    if bin_mode is None:
-        bin_mode = _bin_mode()
-    if bin_mode not in ("sorted", "scatter"):
-        raise ValueError(f"bin_mode must be 'sorted' or 'scatter', not {bin_mode!r}")
-    n = len(directions)
-    if n == 0:
-        raise ValueError("need at least one ray")
     if mesh.get_coordinate() is None:
         return None, None, None
     rank = mesh.get_local_rank(axis)
     group = mesh.get_group(axis)
 
     with profiling.span("rv.prepare"):
-        with profiling.span("rv.atten_spec"):
-            spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
-        with profiling.span("rv.sweep_table"):
-            soup = soup_from_scene(scene, device=dev)
-        length = histogram_length(scene, config.reflections, config.sample_rate)
-        profiling.count("hist.len", length)
-        nblocks = soup.block_aabb.shape[0]
         # the whole population's schedule, identical on every rank; each
         # rank then takes a contiguous Morton range (sharded.py:186-217)
-        with profiling.span("rv.ray_order"):
-            directions = _f32(directions, dev)
-            order, resort = ray_schedule(directions, nblocks)
-            if order is not None:
-                directions = directions[order]
+        prep = _prepare(scene, config, directions, dev, hrtf_table=hrtf_table,
+                        bin_mode=bin_mode)
+        n = prep.directions.shape[0]
         per = -(-n // d)
-        mine = directions[rank * per:(rank + 1) * per]
-        include_diffuse = config.output_mode in (OutputMode.ALL, OutputMode.DIFFUSE_ONLY)
-        pair_stats = profiling.pair_sums()
+        mine = prep.directions[rank * per:(rank + 1) * per]
 
-    hist = None
-    max_t_dev = torch.zeros((), device=dev)
-    min_t_dev = torch.tensor(float("inf"), device=dev)
     buf = _empty_buffer(dev)
-    chunks = 0
-    if mine.shape[0]:
-        chunk = choose_ray_chunk(mine.shape[0], config.reflections, nblocks, ray_chunk,
-                                 memory_budget(dev))
-        for first in range(0, mine.shape[0], chunk):
-            with profiling.span("rv.trace", first=first):
-                hist, mx, mn, part = _fused_trace_bin(
-                    soup,
-                    config.mic_position,
-                    config.source_position,
-                    mine[first:first + chunk],
-                    spec,
-                    nreflections=config.reflections,
-                    length=length,
-                    sample_rate=config.sample_rate,
-                    impl=impl,
-                    include_diffuse=include_diffuse,
-                    resort=resort,
-                    bin_mode=bin_mode,
-                    init_hist=hist,
-                    stats=pair_stats,
-                )
-                max_t_dev = torch.maximum(max_t_dev, mx)
-                min_t_dev = torch.minimum(min_t_dev, mn)
-                buf = _merge_dedup(buf, _admitted_rows(part, config.remove_direct))
-                del part
-            chunks += 1
+
+    def merge(part):
+        nonlocal buf
+        buf = _merge_dedup(buf, _admitted_rows(part, config.remove_direct))
+
+    # a rank without rays (fewer rays than ranks) runs no chunk
+    chunk = max(choose_ray_chunk(mine.shape[0], config.reflections, prep.nblocks, ray_chunk,
+                                 memory_budget(dev)), 1)
+    hist, max_t_dev, min_t_dev = _trace_chunks(prep, config, mine, chunk, impl, merge)
+    chunks = -(-mine.shape[0] // chunk)
     if hist is None:
-        hist = torch.zeros((spec.nchannels, NUM_BANDS, length), device=dev)
+        hist = torch.zeros((prep.spec.nchannels, NUM_BANDS, prep.length), device=dev)
 
     # the collectives (module docstring), in the same order on every rank
     dist.all_reduce(hist, op=dist.ReduceOp.SUM, group=group)
@@ -396,14 +352,12 @@ def _render_sharded(scene, config, directions, *, mesh, hrtf_table, impl, dev, r
         retries += 1
     gathered = _unpack(_all_gather(_pack(buf, budget), group, d))
     del buf
-    if pair_stats is not None:
-        dist.all_reduce(pair_stats, op=dist.ReduceOp.SUM, group=group)
+    if prep.pair_stats is not None:
+        dist.all_reduce(prep.pair_stats, op=dist.ReduceOp.SUM, group=group)
     profiling.mark("trace_bin")
 
-    channels, info = _finish_render(
-        hist, gathered, max_t, min_t, config, spec, dev, length=length,
-        remove_direct=False,
-    )
+    channels, info = _finish_render(hist, gathered, max_t, min_t, config, prep, dev,
+                                    remove_direct=False)
     info.update({
         "mesh": {axis: d},
         "image_rows_gathered": d * budget,
@@ -412,9 +366,9 @@ def _render_sharded(scene, config, directions, *, mesh, hrtf_table, impl, dev, r
         "image_budget": budget,
         "image_budget_retries": retries,
         "segments": segments,
-        "resort": resort,
+        "resort": prep.resort,
         "rays_per_rank": [len(range(n)[r * per:(r + 1) * per]) for r in range(d)],
         "sweeps": sweep_count(config.reflections) * sum(segments),
-        "bin_mode": bin_mode,
+        "bin_mode": prep.bin_mode,
     })
-    return channels, info, soup
+    return channels, info, prep.soup

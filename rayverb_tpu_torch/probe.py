@@ -1,7 +1,7 @@
 """Sweep probe: the north star at a chosen ray count, with its executed pairs.
 
     python -m rayverb_tpu_torch.probe [--rays 65536] [--chunk N] [--runs 1]
-        [--device cuda|cpu] [--profile] [--variant NAME]
+        [--device cuda|cpu] [--profile]
 
 Renders the north-star workload (NORTH_STAR: the 101,568-triangle hall of
 scripts/gen_hall.py, generated into a temporary directory, stereo HRTF, 16
@@ -13,10 +13,7 @@ the kernels), the best warm wall and its trace_bin and finalize phases,
 the executed pair tests by sweep kind in G, and every RAYVERB_* variable
 of the environment, so that each variant of a knob runs in a fresh
 process. --chunk sets the rays per chunk (default: chosen by memory).
---variant renders under one of the trace's other sweep schedules
-(trace_variants.VARIANTS; ``probe_turns`` runs them in turns), and a
-horizon split adds the live rows of each of its two passes. On a CUDA
-device the line also holds the peak device memory of the warm runs, and
+On a CUDA device the line also holds the peak device memory of the warm runs, and
 with --profile the device breakdown of one more warm render without
 stats (profile_render.device_breakdown: the sweep and order kernels'
 launches and device ms, device busy time).
@@ -72,50 +69,41 @@ def hall_scene(tmp: str, triangles: int = HALL_TRIANGLES):
 
 
 def probe(scene, config, *, runs: int = 1, chunk=None, device=None,
-          seed: int = 1234, profile: bool = False, variant: str = "default") -> dict:
+          seed: int = 1234, profile: bool = False) -> dict:
     """Render ``config`` on ``scene`` once cold and ``runs`` times warm
-    with stats, under the trace variant ``variant``
-    (trace_variants.applied); returns the probe's record (module
-    docstring)."""
+    with stats; returns the probe's record (module docstring)."""
     import torch
 
     from .ops.render import render_fused
-    from .trace_variants import applied
     from .utils.directions import random_directions
 
     dirs = random_directions(config.rays, seed=seed)
     cuda = torch.device("cuda" if device is None else device).type == "cuda"
-    live = []
 
     def render(stats=True):
         return render_fused(scene, config, dirs, ray_chunk=chunk, device=device,
                             stats=stats)
 
-    with applied(variant, live):
+    t0 = time.perf_counter()
+    render()
+    cold = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    best = None
+    for _ in range(runs):
         t0 = time.perf_counter()
-        render()
-        cold = time.perf_counter() - t0
-        # the cold render's rows of each horizon split: pass 1's live rows,
-        # pass 2's (the rays that pass 1 left unresolved)
-        split_rows = [[int(a), int(u)] for a, u in live]
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        best = None
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            _, info = render()
-            wall = time.perf_counter() - t0
-            if best is None or wall < best[0]:
-                best = (wall, info)
-        peak = torch.cuda.max_memory_allocated() if cuda else None
-        if profile:
-            from .profile_render import device_breakdown
+        _, info = render()
+        wall = time.perf_counter() - t0
+        if best is None or wall < best[0]:
+            best = (wall, info)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    if profile:
+        from .profile_render import device_breakdown
 
-            breakdown = device_breakdown(lambda: render(stats=False))
+        breakdown = device_breakdown(lambda: render(stats=False))
     wall, info = best
     out = {
         "rays": config.rays,
-        "variant": variant,
         "device": info["device"],
         "env": {k: v for k, v in os.environ.items() if k.startswith("RAYVERB_")},
         "compile_wall_s": cold,
@@ -125,8 +113,6 @@ def probe(scene, config, *, runs: int = 1, chunk=None, device=None,
         "ray_chunk": info["ray_chunk"],
         "memory_estimate_bytes": info["memory_estimate_bytes"],
     }
-    if split_rows:
-        out["horizon_split_rows"] = split_rows
     if cuda:
         out["peak_memory_bytes"] = peak
     if "pair_tests_executed" in info:
@@ -138,8 +124,6 @@ def probe(scene, config, *, runs: int = 1, chunk=None, device=None,
 
 
 def main(argv=None) -> int:
-    from .trace_variants import VARIANTS
-
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rays", type=int, default=65536)
     ap.add_argument("--chunk", type=int, default=None,
@@ -148,8 +132,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--profile", action="store_true",
                     help="add the device breakdown of one more warm render (cuda)")
-    ap.add_argument("--variant", choices=VARIANTS, default="default",
-                    help="the trace's sweep schedule (trace_variants)")
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be >= 1")
@@ -167,7 +149,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="rayverb_probe_") as tmp:
         scene = hall_scene(tmp)
     out = probe(scene, config, runs=args.runs, chunk=args.chunk, device=dev,
-                profile=args.profile, variant=args.variant)
+                profile=args.profile)
     if dev.type == "cuda":
         from .device import card_name_and_power
 

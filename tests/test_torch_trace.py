@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from rayverb_tpu import load_scene
@@ -115,6 +116,44 @@ def test_resort_is_invisible(scenes):
     b = port_trace.trace_chunk(psoup, mic, src, dirs, nreflections=12, resort=True)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def test_trace_without_resort_equals_default_and_jax(scenes):
+    """The trace without its between-bounce resort: the resorted trace's
+    records bit for bit, and JAX _trace_impl's with resort=False (on the
+    XLA sweep; its resort needs the consume path) at the stated
+    tolerances. The box's table is smaller than the 32 blocks from which
+    renders resort, so the traces are asked for resort directly."""
+    name, mic, src = BOX
+    _, jsoup, psoup = scenes[name]
+    nrays, nrefl = 512, 6
+    dirs = random_directions(nrays, seed=3)
+    mic, src = np.float32(mic), np.float32(src)
+
+    def port(resort):
+        return port_trace._trace_impl(psoup, mic, src, dirs, nreflections=nrefl,
+                                      impl="plain", resort=resort)
+
+    @jax.jit
+    def run(soup, d):
+        aux, images, _ = jax_trace._trace_impl(
+            soup, mic, src, d, nreflections=nrefl, impl="xla",
+            consume_row=jax_render._collect_row,
+            aux0=jax_render._row_buffers(nrefl, d.shape[0]),
+            nvalid=np.int32(d.shape[0]), resort=False,
+        )
+        return aux[:3], images
+
+    got, default = port(False), port(True)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(default, f)), f
+    rows, images = run(jsoup, jnp.asarray(dirs))
+    diffuse = ("diffuse_volume", "diffuse_position", "diffuse_time")
+    want = {f: np.moveaxis(np.asarray(r), 0, 1) for f, r in zip(diffuse, rows)}
+    want.update({f: np.asarray(x) for f, x in
+                 zip(("image_volume", "image_position", "image_time", "image_index"), images)})
+    _compare(type(got)(**want), got, got._fields)
+    assert int((got.image_index[:, 1:] != 0).sum()) > 50  # images exercised
 
 
 def test_sweep_count_matches_closest_hit_calls(scenes, monkeypatch):

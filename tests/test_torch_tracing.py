@@ -177,6 +177,24 @@ def test_spans_in_a_profiler_session(vault, not_first):
     assert profiling._current is None
 
 
+def test_profile_dir_writes_a_trace(vault, tmp_path, monkeypatch):
+    """render_fused(stats=True) with RAYVERB_PROFILE_DIR set writes one
+    Chrome trace of the render into the directory; without stats, none."""
+    cfg = _cfg(rays=64)
+    out = tmp_path / "profile"
+    monkeypatch.setenv("RAYVERB_PROFILE_DIR", str(out))
+    d = random_directions(64, seed=1)
+    plain, _ = port_render.render_fused(vault, cfg, d, device="cpu")
+    assert not out.exists()
+    ir, info = port_render.render_fused(vault, cfg, d, device="cpu", stats=True)
+    np.testing.assert_array_equal(ir, plain)
+    files = list(out.iterdir())
+    assert len(files) == 1 and files[0].suffix == ".json"
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
+    assert "timings" in info
+
+
 def test_first_call_of_the_process(vault, monkeypatch):
     """The process's first call records its whole tree without stats
     (kept once), and later calls without stats record nothing."""
