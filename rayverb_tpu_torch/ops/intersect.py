@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..constants import EPSILON
+from ..device import resolve_device
 from ..utils import profiling
 from ..utils.directions import _morton3
 
@@ -226,6 +227,55 @@ def soup_from_scene(scene, device=None) -> TriangleSoup:
         scene.diffuse,
         device=device,
     )
+
+
+def _content(scene) -> tuple:
+    """Every input a soup reads, exactly: the dtype, shape and bytes of
+    tri_verts (padding rows included), tri_surface, specular and
+    diffuse."""
+    return tuple((a.dtype.str, a.shape, a.tobytes()) for a in map(
+        np.asarray, (scene.tri_verts, scene.tri_surface, scene.specular, scene.diffuse)))
+
+
+class SoupCache:
+    """The soups of the last ``size`` scenes and devices asked for, the
+    least recently used evicted first. A soup is found by its device and
+    by a byte comparison of the scene's inputs (``_content``) against the
+    copy kept with it, so an equal scene gets it and a scene changed in
+    place gets a new one. Equal inputs build byte-equal tables, and no
+    caller writes into a soup's tensors, so a kept soup serves every
+    later call."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.entries: list = []  # [(key, soup)], the most recent last
+
+    def get(self, scene, device=None) -> tuple[TriangleSoup, bool]:
+        """(the soup of ``scene`` on ``device``, whether it was kept)"""
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = (dev, _content(scene))
+        for i, (k, soup) in enumerate(self.entries):
+            if k == key:
+                self.entries.append(self.entries.pop(i))
+                return soup, True
+        soup = soup_from_scene(scene, device=dev)
+        self.entries = [*self.entries, (key, soup)][-self.size:]
+        return soup, False
+
+
+# the process's soups: a few scenes (a hall's is ~14 MB on the card)
+_SOUPS = SoupCache(4)
+
+
+def cached_soup(scene, device=None) -> tuple[TriangleSoup, bool]:
+    """soup_from_scene's soup, built once per scene content and device in
+    a process (SoupCache): (soup, whether it was kept), counted as
+    sweep_table.hits or sweep_table.builds."""
+    soup, hit = _SOUPS.get(scene, device)
+    profiling.count("sweep_table.hits" if hit else "sweep_table.builds")
+    return soup, hit
 
 
 class Hit(NamedTuple):

@@ -67,7 +67,7 @@ from ..utils.directions import morton_order_torch
 from ..utils import profiling
 from .attenuate import _f32, head_basis, hrtf_gain_time, speaker_gain
 from .filters import _band_coeffs, _fft_len
-from .intersect import SWEEP_RAYS, TriangleSoup, soup_from_scene
+from .intersect import SWEEP_RAYS, TriangleSoup, cached_soup
 from .trace import SWEEP_KINDS, _trace_impl, sweep_count
 
 MAX_HIST_LEN = 1 << 23  # ~190 s at 44.1 kHz; hard cap on the static bound
@@ -765,8 +765,11 @@ def _prepare(scene, config: RenderConfig, directions, dev, *, hrtf_table=None,
     """The per-call preparation of render_fused, the sharded render and the
     batched datagen, run inside the caller's span rv.prepare: bin_mode
     resolved (None reads RAYVERB_BIN) and checked; the attenuation spec
-    (span rv.atten_spec); the sweep table (span rv.sweep_table) unless
-    ``soup`` is given; the histogram bound (counter hist.len); the rays on
+    (span rv.atten_spec); unless ``soup`` is given, the sweep table (span
+    rv.sweep_table, attribute hit): the process's soup of the scene's
+    content on ``dev``, built by the first call that asks for it
+    (intersect.cached_soup, counter sweep_table.hits or .builds); the
+    histogram bound (counter hist.len); the rays on
     ``dev`` in ray_schedule's order, with its resort decided on the whole
     population (span rv.ray_order): directions (N, 3) come back as (N, 3)
     rows, (B, N, 3) for B pairs' ray sets as pair-major (B * N, 3) rows;
@@ -782,8 +785,9 @@ def _prepare(scene, config: RenderConfig, directions, dev, *, hrtf_table=None,
     with profiling.span("rv.atten_spec"):
         spec = make_atten_spec(config.attenuation_model, dev, hrtf_table)
     if soup is None:
-        with profiling.span("rv.sweep_table"):
-            soup = soup_from_scene(scene, device=dev)
+        with profiling.span("rv.sweep_table") as sp:
+            soup, hit = cached_soup(scene, dev)
+            sp.set(hit=hit)
     length = histogram_length(scene, config.reflections, config.sample_rate)
     profiling.count("hist.len", length)
     with profiling.span("rv.ray_order"):

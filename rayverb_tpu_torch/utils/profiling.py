@@ -31,7 +31,10 @@ on the device into the call's accumulator, ``pair_sums``, and copied to
 the host once, before the call's own final pull: ``stage``), ``hist.len``
 and ``finalize.bucket`` (render_fused's static histogram bound and the
 samples its finalize ran on), ``bounces.graph`` and ``bounces.eager``
-(the trace's bounces, by replay of phase B's CUDA graph or eagerly), and
+(the trace's bounces, by replay of phase B's CUDA graph or eagerly),
+``sweep_table.hits`` and ``sweep_table.builds`` (the scene's sweep table
+taken from the process's cache or built, ops/intersect.py
+``cached_soup``), and
 ``launches.<kernel>``, the call's deltas of the module counters that the
 kernel wrappers keep (LAUNCH_COUNTERS). A CUDA graph's replay adds again
 the host counts that its capture added (``host_counts``, ``add_counts``).
@@ -161,6 +164,9 @@ class _Off:
     """The span of a call that records nothing."""
 
     __slots__ = ()
+
+    def set(self, **attrs):
+        pass
 
     def __enter__(self):
         return self

@@ -25,6 +25,7 @@ from rayverb_tpu.ops import render as jax_render
 from rayverb_tpu.utils.directions import morton_sort, random_directions
 from rayverb_tpu_torch.config.schema import parse_config as port_parse_config
 from rayverb_tpu_torch.ops import render as port_render
+from rayverb_tpu_torch.ops.intersect import soup_from_scene
 
 from test_torch_render import _assert_within_60db, _doc, feed_jax_trace
 
@@ -132,7 +133,7 @@ def test_chunk_rule():
 def test_render_chunks_when_the_estimate_does_not_fit(box, monkeypatch):
     """ray_chunk=None chunks by the memory rule: with a budget that holds
     256 rays but not 512, 600 rays render in 3 chunks of 256."""
-    nblocks = port_render.soup_from_scene(box, device="cpu").block_aabb.shape[0]
+    nblocks = soup_from_scene(box, device="cpu").block_aabb.shape[0]
     budget = port_render.render_bytes(256, 4, nblocks)
     monkeypatch.setattr(port_render, "memory_budget", lambda dev: budget)
     text = _config(600)

@@ -416,7 +416,8 @@ def test_reader_on_the_program(stem, want):
 
 
 @pytest.mark.parametrize("stem", ["prepare_ms", "closest_hit_host_us", "pair_tests_per_row",
-                                  "first_call_extra_s", "live_row_share"])
+                                  "first_call_extra_s", "live_row_share",
+                                  "sweep_table_hit_share"])
 @pytest.mark.parametrize("ctx", [PARENT_CTX, {"setup_s": 1.0, "stats": []}],
                          ids=["parent", "untraced"])
 def test_reader_on_the_parent(stem, ctx):
