@@ -13,12 +13,14 @@ modular`` (pipeline.render) runs the reference's stages one by one, with
 the causal time-domain scan filters by default. ``--save-raw``,
 ``--from-raw`` and ``--dump-paths`` imply the modular pipeline, as in the
 JAX CLI. Speaker and HRTF configs, on the GPU unless ``--device cpu`` is
-given. With ``--stats`` the phase walls are printed, then the render's
-span table (calls, total and self seconds by ``rv.*`` span,
-utils/profiling.py) and its counters: closest-hit calls and rows, kernel
-launches, the executed pair tests and the live rows by sweep kind, and the
-histogram's static bound and the finalize's bucket. Errors: message to
-stderr, exit code 1.
+given. With ``--stats`` the phase walls are printed (the modular
+pipeline's: trace, population, post and process), then the render's span
+table (calls, total and self seconds by ``rv.*`` span, utils/profiling.py)
+and its counters: closest-hit calls and rows, kernel launches, the
+executed pair tests and the live rows by sweep kind, and the fused
+render's histogram bound and finalize bucket or the modular pipeline's
+population, dedup and biquad counters. Errors: message to stderr, exit
+code 1.
 """
 
 from __future__ import annotations
@@ -126,21 +128,15 @@ def main(argv=None) -> int:
             and not args.save_raw
             and not args.from_raw
         )
-        timer = None
-        if args.stats and not use_fused:
-            from .device import resolve_device
-            from .utils.profiling import PhaseTimer
-
-            timer = PhaseTimer(resolve_device(args.device))
         if args.from_raw:
             from .engine import load_raw
             from .pipeline import render_from_raw
 
             result = render_from_raw(
                 config, load_raw(args.from_raw), filter_method=args.filter_method,
-                device=args.device, timer=timer,
+                device=args.device, stats=args.stats,
             )
-            channels = result.channels
+            channels, info = result.channels, result.info
         elif use_fused:
             from .ops.render import render_fused
 
@@ -162,9 +158,9 @@ def main(argv=None) -> int:
                 filter_method=args.filter_method,
                 trace_impl=args.trace_impl,
                 device=args.device,
-                timer=timer,
+                stats=args.stats,
             )
-            channels = result.channels
+            channels, info = result.channels, result.info
         t2 = _time.perf_counter()
 
         if args.dump_paths and not use_fused and result.raytracer is not None:
@@ -187,26 +183,21 @@ def main(argv=None) -> int:
 
         if args.stats:
             bounces = config.rays * config.reflections
-            device = info["device"] if use_fused else str(timer.device)
             print(
                 f"scene load: {t1 - t0:.3f}s  render: {t2 - t1:.3f}s  "
                 f"write: {t3 - t2:.3f}s  "
                 f"({bounces / max(t2 - t1, 1e-9) / 1e6:.2f} M ray-bounces/s)"
-                f"  device: {device}",
+                f"  device: {info['device']}",
                 file=sys.stderr,
             )
             from .utils.profiling import report
 
-            if not use_fused:
-                print(f"phases [{timer.report()}]", file=sys.stderr)
-                timings = timer.timings()
-            else:
-                timings = info["timings"]
-                phases = "  ".join(
-                    f"{k}: {v:.3f}s" for k, v in timings.items()
-                    if isinstance(v, float) and k != "total"
-                )
-                print(f"phases [{phases}]", file=sys.stderr)
+            timings = info["timings"]
+            phases = "  ".join(
+                f"{k}: {v:.3f}s" for k, v in timings.items()
+                if isinstance(v, float) and k != "total"
+            )
+            print(f"phases [{phases}]", file=sys.stderr)
             print("\n".join(report(timings)), file=sys.stderr)
     except (ValueError, RuntimeError, OSError) as e:
         print("encountered runtime error:", file=sys.stderr)

@@ -36,6 +36,7 @@ import torch
 from ..config.schema import FilterType
 from ..constants import FILTER_EDGES_UPPER
 from ..device import resolve_device
+from ..utils import profiling
 
 KERNEL_LENGTH = 29  # filters.h:123,139
 
@@ -405,13 +406,31 @@ def _scan_onepass_multi(data, coeff_stack, content_len=None):
     whose cumulative flip parity is odd runs as a reverse scan on the
     unflipped signal (the same bits as flip, scan, flip back), so the
     output keeps the input's time order. content_len: biquad_onepass's
-    per-pass mask (an int, or per-series lengths)."""
+    per-pass mask (an int, or per-series lengths).
+
+    Each pass adds the samples it is given, series x content length
+    (summed over per-series lengths), to the counter
+    biquad.series_samples, whatever runs the pass."""
     out = _f32(data)
+    samples = _series_samples(out, content_len) if profiling.counting() else 0
     reverse = False
     for coeffs, do_flip in coeff_stack:
         reverse ^= bool(do_flip)
         out = biquad_onepass(out, coeffs, reverse=reverse, content_len=content_len)
+        profiling.count("biquad.series_samples", samples)
     return out
+
+
+def _series_samples(data, content_len) -> int:
+    """The samples of (..., T) series that one pass of _scan_onepass_multi
+    filters: series x content length, or the sum of per-series lengths
+    (broadcast to the leading dims; read from the device)."""
+    t = data.shape[-1]
+    series = data.numel() // t if t else 0
+    if isinstance(content_len, torch.Tensor):
+        lens = torch.broadcast_to(content_len.to(data.device), data.shape[:-1])
+        return int(lens.sum())
+    return series * (t if content_len is None else int(content_len))
 
 
 def _bank_fft_passes(data, responses, flips: tuple, nfft: int):

@@ -18,13 +18,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .render import _sorted_hist, _time_bins
 
 
 def max_sample(times, sample_rate: float) -> int:
     """Index of the final sample + 1 (rayverb.cpp:53-57). The reduction
-    runs on the tensor's device; only the scalar crosses to the host."""
-    t = float(torch.amax(times)) if times.numel() else 0.0
+    runs on the tensor's device; only the scalar crosses to the host (the
+    wait: rv.sync site hist_len)."""
+    with profiling.span("rv.sync", site="hist_len"):
+        t = float(torch.amax(times)) if times.numel() else 0.0
     return int(np.floor(t * sample_rate + 0.5)) + 1
 
 

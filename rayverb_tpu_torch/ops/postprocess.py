@@ -17,6 +17,7 @@ import torch
 
 from ..config.schema import FilterType
 from ..constants import TRIM_TAIL_FLOOR
+from ..utils import profiling
 from .filters import filter_bank
 
 
@@ -60,10 +61,12 @@ def trim_tail(channels, min_vol: float = TRIM_TAIL_FLOOR):
 def find_predelay(times) -> float:
     """Earliest non-zero impulse time; zeros mean 'no impulse'
     (findPredelay, rayverb.h:49-73). The reduction runs on the tensor's
-    device; only the scalar is pulled."""
+    device; only the scalar is pulled (the wait: rv.sync site
+    predelay)."""
     if times.numel() == 0:
         return 0.0
-    m = float(torch.amin(torch.where(times > 0, times, float("inf"))))
+    with profiling.span("rv.sync", site="predelay"):
+        m = float(torch.amin(torch.where(times > 0, times, float("inf"))))
     return 0.0 if m == float("inf") else m
 
 
@@ -91,20 +94,25 @@ def process(
     8 bands, mix down, then optional normalise / scale / tail trim.
 
     band_signals: (C, 8, T) tensor, filtered on its device. Returns (C, T')
-    numpy float32."""
-    filtered = filter_bank(
-        band_signals,
-        sample_rate,
-        lo_cutoff,
-        filter_type,
-        method=filter_method,
-    )
-    mixed = mixdown(filtered)
-    if do_normalize:
-        mixed = normalize(mixed)
-    if volume_scale != 1.0:
-        mixed = mixed * np.float32(volume_scale)
-    out = mixed.cpu().numpy().astype(np.float32)
-    if do_trim_tail:
-        out = trim_tail(out)
+    numpy float32. Its stages are the phases rv.filter (the bank) and
+    rv.mix (mixdown, normalisation, scale, the pull to the host, rv.sync
+    site pull, and the tail trim)."""
+    with profiling.phase("rv.filter"):
+        filtered = filter_bank(
+            band_signals,
+            sample_rate,
+            lo_cutoff,
+            filter_type,
+            method=filter_method,
+        )
+    with profiling.phase("rv.mix"):
+        mixed = mixdown(filtered)
+        if do_normalize:
+            mixed = normalize(mixed)
+        if volume_scale != 1.0:
+            mixed = mixed * np.float32(volume_scale)
+        with profiling.span("rv.sync", site="pull"):
+            out = mixed.cpu().numpy().astype(np.float32)
+        if do_trim_tail:
+            out = trim_tail(out)
     return out

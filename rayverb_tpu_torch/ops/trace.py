@@ -744,7 +744,11 @@ def trace(
     device and cut back to N. The chunk size never changes results, and
     neither does ray order: the rays are traced in render.ray_schedule's
     order, made on the soup's device as render_fused makes it, and the
-    outputs are put back in the caller's order."""
+    outputs are put back in the caller's order.
+
+    Each chunk is a span rv.trace (attribute first, its first ray), as in
+    render_fused; in a stats call the sweeps add their executed pair tests
+    and live rows into the call's accumulator (profiling.pair_sums)."""
     from .render import choose_ray_chunk, memory_budget, ray_schedule
 
     soup = (
@@ -767,18 +771,19 @@ def trace(
         pad_dirs = torch.zeros((nchunks * chunk - n, 3), device=soup.device)
         pad_dirs[:, 2] = 1.0
         directions = torch.cat([directions, pad_dirs])
-    pieces = [
-        _trace_impl(
-            soup,
-            mic,
-            source,
-            directions[c * chunk : (c + 1) * chunk],
-            nreflections=nreflections,
-            impl=impl,
-            resort=resort,
-        )
-        for c in range(nchunks)
-    ]
+    pieces = []
+    for c in range(nchunks):
+        with profiling.span("rv.trace", first=c * chunk):
+            pieces.append(_trace_impl(
+                soup,
+                mic,
+                source,
+                directions[c * chunk : (c + 1) * chunk],
+                nreflections=nreflections,
+                impl=impl,
+                resort=resort,
+                stats=profiling.pair_sums(),
+            ))
     fields = [
         pieces[0][i] if nchunks == 1 else torch.cat([p[i] for p in pieces])[:n]
         for i in range(len(TraceOutputs._fields))

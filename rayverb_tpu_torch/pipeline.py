@@ -8,13 +8,22 @@ the image dedup on the host, attenuation, optional predelay fix, flatten
 default to the causal time-domain scans (the biquad_scan kernel on the card);
 the raw impulses can be saved and rendered again without tracing
 (render_from_raw), and the trace outputs stay available for the path dump.
+
+A call is the root span rv.modular (utils.profiling.call), its stages the
+spans rv.dense_trace (the Raytracer: rv.sweep_table, one rv.trace per
+chunk), rv.population (rv.dedup), rv.attenuate, rv.predelay, rv.flatten,
+rv.filter and rv.mix, each ended by a device synchronisation in a
+``stats=True`` call; rv.sync spans mark where the host waits for the
+device (sites dedup_index, predelay, hist_len, pull). A stats call's
+``info["timings"]`` holds them, their counters, and the flat stage walls
+of FLAT_TIMINGS.
 """
 
 from __future__ import annotations
 
 import sys
 from contextlib import nullcontext
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -25,7 +34,18 @@ from .ops.attenuate import attenuate
 from .ops.histogram import flatten_channels
 from .ops.postprocess import find_predelay, fix_predelay, process
 from .scene.compile import Scene
+from .utils import profiling
 from .utils.directions import random_directions
+
+# the flat stage walls of a stats call's info["timings"], each the sum of
+# the spans it names: the dense trace, the population (dedup), the
+# post-processing up to the histogram, and the filter bank with the mix
+FLAT_TIMINGS = {
+    "trace": ("rv.dense_trace",),
+    "population": ("rv.population",),
+    "post": ("rv.attenuate", "rv.predelay", "rv.flatten"),
+    "process": ("rv.filter", "rv.mix"),
+}
 
 
 @dataclass
@@ -36,6 +56,7 @@ class RenderResult:
     attenuated_times: object   # (C, M) tensor on the render's device
     predelay: float
     raytracer: Raytracer | None  # retains TraceOutputs for diagnostics
+    info: dict = field(default_factory=dict)  # device, ...; timings with stats
 
 
 def select_results(raytracer: Raytracer, config: RenderConfig) -> RaytracerResults:
@@ -55,13 +76,15 @@ def _post(config: RenderConfig, results: RaytracerResults, *, hrtf_table,
           filter_method: str, device, timer, raytracer) -> RenderResult:
     """Attenuation, predelay, flatten and process of a population."""
     with _phase(timer, "attenuate"):
-        volumes, times = attenuate(results, config.attenuation_model, hrtf_table,
-                                   device=device)
+        with profiling.phase("rv.attenuate"):
+            volumes, times = attenuate(results, config.attenuation_model, hrtf_table,
+                                       device=device)
         predelay = 0.0
         if config.trim_predelay:
-            predelay = find_predelay(times)
-            times = fix_predelay(times, predelay)
-    with _phase(timer, "flatten"):
+            with profiling.phase("rv.predelay"):
+                predelay = find_predelay(times)
+                times = fix_predelay(times, predelay)
+    with _phase(timer, "flatten"), profiling.phase("rv.flatten"):
         bands = flatten_channels(volumes, times, config.sample_rate)
     with _phase(timer, "process"):
         channels = process(
@@ -81,7 +104,15 @@ def _post(config: RenderConfig, results: RaytracerResults, *, hrtf_table,
         attenuated_times=times,
         predelay=predelay,
         raytracer=raytracer,
+        info={"device": str(device), "predelay": predelay,
+              "histogram_length": int(bands.shape[-1]), "filter_method": filter_method},
     )
+
+
+def _timed(result: RenderResult, timings: dict, stats: bool) -> RenderResult:
+    if stats:
+        result.info["timings"] = timings
+    return result
 
 
 def render_from_raw(
@@ -92,15 +123,20 @@ def render_from_raw(
     filter_method: str = "scan",
     device=None,
     timer=None,
+    stats: bool = False,
 ) -> RenderResult:
     """Attenuation and post-processing of raw impulses (engine.load_raw) on
-    ``device`` (None: the card), without tracing. ``timer``: a
-    profiling.PhaseTimer, or None."""
+    ``device`` (None: the card), without tracing, under the root span
+    rv.modular. ``timer``: a profiling.PhaseTimer, or None. With stats=True
+    the result's info gains ``timings`` (as render's)."""
     if results.num_impulses == 0:
         raise RuntimeError("No raytrace results returned.")
-    return _post(config, results, hrtf_table=hrtf_table,
-                 filter_method=filter_method, device=resolve_device(device),
-                 timer=timer, raytracer=None)
+    dev = resolve_device(device)
+    timings: dict = {}
+    with profiling.call("rv.modular", dev, stats=stats, timings=timings, flat=FLAT_TIMINGS):
+        result = _post(config, results, hrtf_table=hrtf_table,
+                       filter_method=filter_method, device=dev, timer=timer, raytracer=None)
+    return _timed(result, timings, stats)
 
 
 def render(
@@ -114,13 +150,20 @@ def render(
     ray_chunk: int | None = None,
     device=None,
     timer=None,
+    stats: bool = False,
 ) -> RenderResult:
     """Render one impulse response (the body of cmd/main.cpp:241-336) on
     ``device`` (None: the card). trace_impl: the closest-hit sweep, 'auto'
     | 'cuda' | 'plain' (intersect.closest_hit). ray_chunk: rays per trace
     chunk, None to plan it from memory (trace.trace). ``timer``: a
     profiling.PhaseTimer whose phases (trace, population, attenuate,
-    flatten, process) then end with a device synchronisation, or None."""
+    flatten, process) then end with a device synchronisation, or None; the
+    spans inside its phases are the timer's. With stats=True the result's
+    info gains ``timings``: the flat stage walls of FLAT_TIMINGS, ``total``,
+    the call's ``spans`` and ``counters`` (the executed pair tests and live
+    rows by sweep kind, sweep_table.builds, population.rows, dedup.images_in
+    and .images_kept, biquad.series_samples, the kernels' launches),
+    ``call`` and ``once``, as render_fused's."""
     if trace_impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"trace_impl must be 'auto', 'cuda' or 'plain', not {trace_impl!r}")
     for w in config.warnings:
@@ -129,28 +172,33 @@ def render(
     if directions is None:
         directions = random_directions(config.rays, seed=config.seed)
 
-    with _phase(timer, "trace"):
-        raytracer = Raytracer(
-            config.reflections,
-            scene,
-            verbose=config.verbose,
-            impl=trace_impl,
-            ray_chunk=ray_chunk,
-            device=dev,
-        )
-        raytracer.raytrace(config.mic_position, config.source_position, directions)
+    timings: dict = {}
+    with profiling.call("rv.modular", dev, stats=stats, timings=timings, flat=FLAT_TIMINGS):
+        with _phase(timer, "trace"), profiling.phase("rv.dense_trace"):
+            raytracer = Raytracer(
+                config.reflections,
+                scene,
+                verbose=config.verbose,
+                impl=trace_impl,
+                ray_chunk=ray_chunk,
+                device=dev,
+            )
+            raytracer.raytrace(config.mic_position, config.source_position, directions)
+            # the sweeps' counters to the host; the phase's sync completes it
+            profiling.stage()
 
-    # device-resident population: only the small image-index table crosses
-    # to the host (for the chain dedup)
-    with _phase(timer, "population"):
-        vol, pos, tim = assemble_population(
-            raytracer.outputs, config.output_mode, config.remove_direct
+        # device-resident population: only the small image-index table
+        # crosses to the host (for the chain dedup)
+        with _phase(timer, "population"), profiling.phase("rv.population"):
+            vol, pos, tim = assemble_population(
+                raytracer.outputs, config.output_mode, config.remove_direct
+            )
+        if tim.shape[0] == 0:
+            raise RuntimeError("No raytrace results returned.")
+        results = RaytracerResults(
+            volume=vol, position=pos, time=tim, mic=np.asarray(config.mic_position)
         )
-    if tim.shape[0] == 0:
-        raise RuntimeError("No raytrace results returned.")
-    results = RaytracerResults(
-        volume=vol, position=pos, time=tim, mic=np.asarray(config.mic_position)
-    )
-    return _post(config, results, hrtf_table=hrtf_table,
-                 filter_method=filter_method, device=dev, timer=timer,
-                 raytracer=raytracer)
+        result = _post(config, results, hrtf_table=hrtf_table,
+                       filter_method=filter_method, device=dev, timer=timer,
+                       raytracer=raytracer)
+    return _timed(result, timings, stats)

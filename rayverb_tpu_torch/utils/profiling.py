@@ -5,7 +5,8 @@ A span (``span``) names a stretch of host time; a counter (``count``) adds
 to a number. Recording is on in two cases:
 
   - inside a call made with ``stats=True`` (``call``, the root of
-    render_fused, render_irs_batched and render_fused_sharded): the call's
+    render_fused, render_irs_batched, render_fused_sharded and the modular
+    pipeline's render and render_from_raw): the call's
     spans are kept in memory (name, start, end, parent, the call's id) and
     folded at its end into the info's ``timings`` (``Recording.fold``)
   - while a torch.profiler session records: each span then also enters a
@@ -34,7 +35,12 @@ samples its finalize ran on), ``bounces.graph`` and ``bounces.eager``
 (the trace's bounces, by replay of phase B's CUDA graph or eagerly),
 ``sweep_table.hits`` and ``sweep_table.builds`` (the scene's sweep table
 taken from the process's cache or built, ops/intersect.py
-``cached_soup``), and
+``cached_soup``; the modular pipeline's Raytracer builds one every call),
+``population.rows``, ``dedup.images_in`` and ``dedup.images_kept`` (the
+modular pipeline's rows entering its population, and the image records
+its host dedup admits and keeps), ``biquad.series_samples`` (the samples
+each biquad pass of a filter bank is given: series x content length, per
+pass, whatever runs it), and
 ``launches.<kernel>``, the call's deltas of the module counters that the
 kernel wrappers keep (LAUNCH_COUNTERS). A CUDA graph's replay adds again
 the host counts that its capture added (``host_counts``, ``add_counts``).
@@ -145,13 +151,17 @@ class Recording:
 
     def fold(self, flat: dict) -> dict:
         """The info's ``timings``: the flat keys (the marks; each key of
-        ``flat`` the seconds of the span it names; ``total`` the root's),
-        ``spans``, ``counters``, ``call`` (id and start on the host's
-        perf_counter clock) and ``once`` (the process-wide store)."""
+        ``flat`` the seconds of the span it names, or the sum over a tuple
+        of names, where one of them ran; ``total`` the root's), ``spans``,
+        ``counters``, ``call`` (id and start on the host's perf_counter
+        clock) and ``once`` (the process-wide store)."""
         table = self.table()
         root = self.spans[0]
         out = dict(self.marks)
-        out.update((key, table[name]["s"]) for key, name in flat.items() if name in table)
+        for key, names in flat.items():
+            names = (names,) if isinstance(names, str) else names
+            if any(name in table for name in names):
+                out[key] = sum(table[name]["s"] for name in names if name in table)
         out["total"] = root[2] - root[1]
         out["spans"] = table
         out["counters"] = self.counts()
@@ -249,6 +259,12 @@ def count(name: str, n: int = 1):
     """Add ``n`` to the current call's counter ``name``."""
     if _current is not None:
         _current.counters[name] += n
+
+
+def counting() -> bool:
+    """Whether ``count`` adds to a call's counters now: a counter whose
+    value costs a device synchronisation is computed only then."""
+    return _current is not None
 
 
 def host_counts() -> dict:
@@ -366,10 +382,11 @@ def report(timings: dict) -> list:
 
 
 class PhaseTimer:
-    """Named phases of a call outside a root (the modular pipeline's): each
-    phase is the span ``rv.<name>`` of this timer's own ``stats``
-    Recording, ending with a synchronisation of ``device`` (a CUDA device),
-    and the spans inside a phase land in the same recording."""
+    """Named phases kept apart from any root (the modular pipeline's
+    ``timer`` argument): each phase is the span ``rv.<name>`` of this
+    timer's own ``stats`` Recording, ending with a synchronisation of
+    ``device`` (a CUDA device), and the spans inside a phase land in the
+    same recording, not in the call's."""
 
     def __init__(self, device=None):
         self.device = device

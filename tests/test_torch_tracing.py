@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from rayverb_tpu_torch import pipeline
 from rayverb_tpu_torch.config.schema import parse_config
 from rayverb_tpu_torch.ops import intersect as port_isect
 from rayverb_tpu_torch.ops import intersect_cuda
@@ -503,3 +504,121 @@ def test_live_row_share_reader(vault):
     _, info = _render(vault, stats=True)
     ctx = {"rays": 96, "reflections": NREFL, "pairs": 1, "stats": [info["timings"]]}
     assert 99.0 <= _reader("live_row_share")(ctx) <= 100.0
+
+
+# ---------------------------------------------------------------------------
+# the modular pipeline's root call
+# ---------------------------------------------------------------------------
+
+MODULAR_STAGES = ["rv.dense_trace", "rv.population", "rv.attenuate", "rv.predelay",
+                  "rv.flatten", "rv.filter", "rv.mix"]
+TWO_SPEAKERS = {"speakers": [{"direction": [-1, 0, -1], "shape": 0.5},
+                             {"direction": [1, 0, -1], "shape": 0.5}]}
+
+
+def _modular_cfg(**kw):
+    return _cfg(attenuation_model=TWO_SPEAKERS, trim_tail=True, output_mode="all",
+                **{"filter": "linkwitz_riley", "hipass": 60, **kw})
+
+
+def _modular(vault, stats=False, **kw):
+    cfg = _modular_cfg(**kw)
+    return pipeline.render(cfg, vault, directions=random_directions(cfg.rays, seed=5),
+                           device="cpu", stats=stats)
+
+
+def test_flat_key_sums_the_spans_it_names(not_first):
+    t = {}
+    flat = {"ab": ("rv.a", "rv.b"), "a": "rv.a", "gone": ("rv.z",), "bz": ("rv.b", "rv.z")}
+    with profiling.call("rv.outer", "cpu", stats=True, timings=t, flat=flat):
+        with profiling.span("rv.a"):
+            time.sleep(0.01)
+        with profiling.span("rv.b"):
+            time.sleep(0.01)
+    spans = t["spans"]
+    assert t["ab"] == pytest.approx(spans["rv.a"]["s"] + spans["rv.b"]["s"])
+    assert t["a"] == spans["rv.a"]["s"] and t["bz"] == spans["rv.b"]["s"]
+    assert "gone" not in t
+
+
+def test_modular_root_call_stages_and_counters(vault, not_first, monkeypatch):
+    """pipeline.render(stats=True) is the root rv.modular, with a call id,
+    its total and the once record; its stages are spans in the pipeline's
+    order, each flat key the sum of the stage walls it names; the host's
+    waits carry their sites; the counters count the population, the dedup,
+    the table build and the filter bank's samples."""
+    sites = []
+    real_open = profiling.Recording.open
+
+    def spy(self, name, start, attrs):
+        if name == "rv.sync":
+            sites.append(attrs["site"])
+        return real_open(self, name, start, attrs)
+
+    monkeypatch.setattr(profiling.Recording, "open", spy)
+    res = _modular(vault, stats=True)
+    t = res.info["timings"]
+    assert {"call", "once", "spans", "counters", "total"} <= set(t)
+    assert t["call"]["id"] > 0 and set(t["once"]) == {"spans", "first"}
+    spans, counters = t["spans"], t["counters"]
+    assert next(iter(spans)) == "rv.modular"
+    assert t["total"] == spans["rv.modular"]["s"] > 0 and spans["rv.modular"]["n"] == 1
+    assert [n for n in spans if n in MODULAR_STAGES] == MODULAR_STAGES
+    for key, names in pipeline.FLAT_TIMINGS.items():
+        assert t[key] == pytest.approx(sum(spans[n]["s"] for n in names))
+    assert t["total"] >= sum(t[k] for k in pipeline.FLAT_TIMINGS)
+    assert {"rv.sweep_table", "rv.trace", "rv.bounce", "rv.closest_hit", "rv.dedup"} <= set(spans)
+    assert spans["rv.trace"]["n"] == 1 and spans["rv.bounce"]["n"] == NREFL
+    assert {"dedup_index", "predelay", "hist_len", "pull"} <= set(sites)
+    assert counters["sweep_table.builds"] == 1
+    assert counters["population.rows"] == 96 * (NREFL + port_trace.NUM_IMAGE_SOURCE)
+    assert 96 <= counters["dedup.images_in"] and 1 <= counters["dedup.images_kept"]
+    assert counters["dedup.images_kept"] <= counters["dedup.images_in"]
+    assert counters["closest_hit.calls"] == port_trace.sweep_count(NREFL)
+    assert all(counters[f"pair_tests.{k}"] > 0 for k in port_trace.SWEEP_KINDS)
+    assert counters["bounces.graph"] + counters["bounces.eager"] == NREFL
+    assert counters["launches.biquad_scan"] == 0  # the CPU runs the plain scan
+    assert res.info["device"] == "cpu" and res.info["filter_method"] == "scan"
+
+
+@pytest.mark.parametrize("filt, passes", [("linkwitz_riley", 4), ("twopass", 2),
+                                          ("onepass", 1)])
+def test_modular_series_samples(vault, filt, passes):
+    """biquad.series_samples: every pass of the bank adds its series
+    (channels x 8 bands) times the histogram's length."""
+    res = _modular(vault, stats=True, filter=filt)
+    length = res.info["histogram_length"]
+    assert length > res.channels.shape[-1] > 100
+    assert res.info["timings"]["counters"]["biquad.series_samples"] == passes * 2 * 8 * length
+
+
+def test_modular_output_is_the_same_with_stats(vault, not_first):
+    """Stats add spans, synchronisations and counters, not arithmetic."""
+    off = _modular(vault)
+    on = _modular(vault, stats=True)
+    assert "timings" not in off.info and "timings" in on.info
+    assert on.channels.tobytes() == off.channels.tobytes()
+    assert on.channels.shape == off.channels.shape and on.predelay == off.predelay
+
+
+def test_modular_first_call_of_the_process(vault, monkeypatch):
+    """A process's first modular render records its tree, which
+    first_call_extra_s reads, and no stats call is needed for it."""
+    monkeypatch.setattr(profiling, "_first_pending", True)
+    monkeypatch.setattr(profiling, "_first", None)
+    res = _modular(vault)
+    first = profiling.once_record()["first"]
+    assert "timings" not in res.info
+    assert first["name"] == "rv.modular" and first["s"] > 0
+    assert set(MODULAR_STAGES) <= set(first["spans"])
+    assert first["counters"]["sweep_table.builds"] == 1
+
+
+def test_render_from_raw_is_a_root_call(vault, not_first):
+    """render_from_raw runs the same root without the trace's stages."""
+    direct = _modular(vault)
+    again = pipeline.render_from_raw(_modular_cfg(), direct.raw, device="cpu", stats=True)
+    t = again.info["timings"]
+    assert again.channels.tobytes() == direct.channels.tobytes()
+    assert "trace" not in t and "population" not in t and {"post", "process"} <= set(t)
+    assert next(iter(t["spans"])) == "rv.modular"
