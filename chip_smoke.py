@@ -332,7 +332,7 @@ def _hit_mismatch(a, b):
                 | (a.index != b.index) | (a.hit != b.hit)).sum())
 
 
-def _run_schedule(soup, args, order, slices):
+def _run_schedule(soup, args, order, slices, counts):
     """Kernel vs plain on one batch and schedule: the kernel's Hit against
     hit_from_raw of closest_hit_plain, and the executed-pair counters;
     raises unless they are equal bit for bit. Returns (the record, the
@@ -342,9 +342,10 @@ def _run_schedule(soup, args, order, slices):
     from rayverb_tpu_torch.ops import intersect_cuda
     from rayverb_tpu_torch.ops.intersect import closest_hit_plain, hit_from_raw
 
-    pt, pi, p_ex = closest_hit_plain(*args, order, slices, with_stats=True)
+    pt, pi, p_ex = closest_hit_plain(*args, order, slices, counts=counts, with_stats=True)
     plain = hit_from_raw(pt, pi)
-    hit, k_ex = intersect_cuda.closest_hit_cuda(*args, order, slices, with_stats=True)
+    hit, k_ex = intersect_cuda.closest_hit_cuda(*args, order, slices, counts=counts,
+                                                with_stats=True)
     torch.cuda.synchronize()
     both = plain.hit & hit.hit
     rec = {
@@ -355,23 +356,70 @@ def _run_schedule(soup, args, order, slices):
         "executed_pairs": int(k_ex.sum()),
         "max_abs_err": float((plain.t - hit.t).abs()[both].max()) if bool(both.any()) else 0.0,
     }
-    rec["ms"] = _cuda_ms(lambda: intersect_cuda.closest_hit_cuda(*args, order, slices), 20)
+    rec["ms"] = _cuda_ms(
+        lambda: intersect_cuda.closest_hit_cuda(*args, order, slices, counts=counts), 20)
     rec["bound_own_ms"] = _pair_bound_ms(rec["executed_pairs"])
     if rec["mismatch_hit"] or rec["mismatch_executed"]:
         raise AssertionError(f"kernel != plain at {slices} slices: {rec}")
     return rec, hit
 
 
+def _order_mismatch(got, o, d, tmax, decide, aabb, slices, cpu=True):
+    """Entries in which the order kernel's (order, counts) ``got`` differ
+    from cull_order of block_order and block_keep, computed on the card
+    and (``cpu``) on the CPU."""
+    from rayverb_tpu_torch.ops.intersect import block_keep, block_order, cull_order
+
+    mismatch = 0
+    for on in ((o.device, "cpu") if cpu else (o.device,)):
+        x = [None if v is None else v.to(on) for v in (o, d, tmax, decide, aabb)]
+        want = cull_order(block_order(*x[:3], x[4]), block_keep(*x), slices)
+        mismatch += sum(int((a.cpu() != b.cpu()).sum()) for a, b in zip(got, want))
+    return mismatch
+
+
+def _order_bound(o, d, tmax, decide, boxes, order, counts):
+    """The order kernel's least time on the card, as (ms, bound_by, box
+    tests): the larger of its box tests' FP32 operations (~40 a slab
+    test) over the FP32 peak and its bytes over HBM bandwidth. Its box
+    tests: the representative's rank of each (group, block), each ray's
+    test of each superblock, and for each ray that met a superblock one
+    fine test of each of its blocks (the warp's lanes test them against
+    that ray). Its bytes: the rays, their bounds and the boxes read once,
+    the order and the counts written."""
+    from rayverb_tpu_torch.ops.intersect import _bounds, _slab_pass
+
+    m = o.shape[0]
+    groups, nb = order.shape
+    per = nb // boxes.shape[0]
+    t_max, t_dec = _bounds(m, tmax, decide, o.device)
+    cand = (t_max > 0) & (t_max >= t_dec)
+    met = 0
+    for r0 in range(0, m, 1 << 18):
+        r = slice(r0, r0 + (1 << 18))
+        met += int((cand[r, None] & _slab_pass(
+            o[r, None], d[r, None], 1.0 / d[r, None], boxes, t_max[r, None])).sum())
+    tests = groups * nb + m * boxes.shape[0] + met * per
+    ops_ms = tests * 40 / FP32_PEAK * 1e3
+    bytes_ms = 4 * (8 * m + 8 * (nb + boxes.shape[0]) + order.numel()
+                    + counts.numel()) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), tests
+
+
 def _compare_batch(name, soup, o, d, tmax, decide):
     """Kernel vs plain on one batch, bit for bit, at one slice in table
-    order, at the chosen schedule (sweep_schedule) and over
-    SLICE_SCAN with the near-to-far order. Returns the batch's record: rows,
-    mismatches, executed pairs, times, bounds."""
+    order, at the chosen schedule (sweep_schedule: the culled order and
+    its counts) and over SLICE_SCAN, each on its own culled order; the
+    culled walk against closest_hit_plain's walk of the whole of each
+    slice's run of block_order. Returns the batch's record: rows,
+    mismatches, executed pairs, times, bounds, the culled walk's share of
+    the order."""
     import torch
 
     from rayverb_tpu_torch.ops import intersect_cuda
     from rayverb_tpu_torch.ops.intersect import (
-        SWEEP_RAYS, block_order, closest_hit_plain, sweep_schedule, table_order,
+        SWEEP_RAYS, block_keep, block_order, closest_hit_plain, cull_order,
+        hit_from_raw, sweep_schedule, table_order,
     )
     from rayverb_tpu_torch.ops.order_check import order_k, order_keys
 
@@ -379,23 +427,36 @@ def _compare_batch(name, soup, o, d, tmax, decide):
     m = o.shape[0]
     nb = soup.block_aabb.shape[0]
     tp = soup.packed.shape[0]
-    order, slices = sweep_schedule(o, d, tmax, soup.block_aabb,
-                                   bool((decide > 0).any()))
+    groups = -(-m // SWEEP_RAYS)
+    given = decide if bool((decide > 0).any()) else None
+    order, slices, counts = sweep_schedule(o, d, tmax, given, soup)
     # the order kernel against its plain version, on the card and on the CPU
-    order_args = (o, d, tmax, soup.block_aabb)
-    plain_order = block_order(*order_args)
-    cpu_order = block_order(*(x.cpu() for x in order_args))
-    order_mismatch = int((order != plain_order).sum()) + int((order.cpu() != cpu_order).sum())
+    boxes = soup.super_aabb
+    order_mismatch = _order_mismatch((order, counts), o, d, tmax, given, soup.block_aabb,
+                                     slices)
     if order_mismatch:
         raise AssertionError(f"batch {name}: the order table differs between its kernel, "
                              f"its plain version and the CPU ({order_mismatch} entries)")
-    order_ms = _cuda_ms(lambda: intersect_cuda.block_order_cuda(*order_args), 20)
-    order_device_ms = _profiled_ms(
-        lambda: intersect_cuda.block_order_cuda(*order_args), "closest_hit_order", 20)
+
+    def launch(s=slices):
+        return intersect_cuda.block_order_cuda(o, d, tmax, soup.block_aabb, boxes, s,
+                                               t_decide=given)
+
+    order_ms = _cuda_ms(launch, 20)
+    order_device_ms = _profiled_ms(launch, "closest_hit_order", 20)
+    order_args = (o, d, tmax, soup.block_aabb)
     order_k_per_group = order_k(order_keys(*order_args)).float()
-    order_plain_ms = _cuda_ms(lambda: block_order(*order_args), 5)
-    table, table_out = _run_schedule(soup, args, table_order(m, nb, o.device), 1)
-    chosen, chosen_out = _run_schedule(soup, args, order, slices)
+    order_plain_ms = _cuda_ms(lambda: cull_order(
+        block_order(*order_args), block_keep(o, d, tmax, given, soup.block_aabb), slices), 5)
+    whole = torch.full((groups, 1), nb, dtype=torch.int32, device=o.device)
+    table, table_out = _run_schedule(soup, args, table_order(m, nb, o.device), 1, whole)
+    chosen, chosen_out = _run_schedule(soup, args, order, slices, counts)
+    # the cull is exact: the walk of every slice's whole run of block_order
+    ut, ui, uncut_ex = closest_hit_plain(*args, block_order(*order_args), slices,
+                                         with_stats=True)
+    if (_hit_mismatch(hit_from_raw(ut, ui), chosen_out)
+            or int(uncut_ex.sum()) != chosen["executed_pairs"]):
+        raise AssertionError(f"batch {name}: the cull changed a Hit or the executed pairs")
     closest = decide == 0
     rows = lambda hit, mask: type(hit)(*(x[mask] for x in hit))  # noqa: E731
     if _hit_mismatch(rows(table_out, closest), rows(chosen_out, closest)):
@@ -404,9 +465,11 @@ def _compare_batch(name, soup, o, d, tmax, decide):
     verdict = lambda hit: ~hit.hit | (hit.t > decide)  # noqa: E731
     if not torch.equal(verdict(table_out)[~closest], verdict(chosen_out)[~closest]):
         raise AssertionError(f"batch {name}: decided rows' verdicts depend on the schedule")
-    scan = [_run_schedule(soup, args, order, s)[0]
-            for s in SLICE_SCAN if s <= nb // 2]
-    plain_ms = _cuda_ms(lambda: closest_hit_plain(*args, order, slices), 2)
+    scan = []
+    for s in (s for s in SLICE_SCAN if s <= nb // 2):
+        s_order, s_counts = launch(s)
+        scan.append(_run_schedule(soup, args, s_order, s, s_counts)[0])
+    plain_ms = _cuda_ms(lambda: closest_hit_plain(*args, order, slices, counts=counts), 2)
     # least time for this work on the card: the larger of the executed pair
     # tests' FP32 operations over the FP32 peak and the bytes the function
     # must move (inputs read once, outputs written once) over HBM bandwidth
@@ -421,13 +484,9 @@ def _compare_batch(name, soup, o, d, tmax, decide):
     # the same bound over ISSUED pairs (every ray against every row) and
     # the table re-read once per thread block
     issued_ops_ms = _pair_bound_ms(m * tp)
-    reread_ms = (-(-m // SWEEP_RAYS)) * tp * 64 / HBM_BYTES_PER_S * 1e3
-    # the order kernel's least time: t_max read, one representative ray per
-    # group, the AABBs once, the table written; ~40 FP32 operations per
-    # (group, block) slab test
-    order_bytes_ms = (4 * (m + order.shape[0] * 6 + 8 * nb + order.numel())
-                      / HBM_BYTES_PER_S * 1e3)
-    order_ops_ms = order.numel() * 40 / FP32_PEAK * 1e3
+    reread_ms = groups * tp * 64 / HBM_BYTES_PER_S * 1e3
+    order_bound_ms, order_bound_by, order_box_tests = _order_bound(
+        o, d, tmax, given, boxes, order, counts)
     rec = {
         "batch": name,
         "rows": m,
@@ -435,9 +494,9 @@ def _compare_batch(name, soup, o, d, tmax, decide):
         "mismatch_hit": sum(r["mismatch_hit"] for r in [table, chosen, *scan]),
         "mismatch_executed": sum(r["mismatch_executed"] for r in [table, chosen, *scan]),
         "max_abs_err": max(table["max_abs_err"], chosen["max_abs_err"]),
-        "schedule": {"order": "near_to_far", "slices": slices,
-                     "ctas": -(-m // SWEEP_RAYS) * slices},
+        "schedule": {"order": "near_to_far", "slices": slices, "ctas": groups * slices},
         "ms": chosen["ms"],
+        "walk_share": int(counts.sum()) / max(1, order.numel()),
         "table_s1_ms": table["ms"],
         "plain_ms": plain_ms,
         "executed_pairs": chosen["executed_pairs"],
@@ -454,22 +513,24 @@ def _compare_batch(name, soup, o, d, tmax, decide):
         "order_device_ms": order_device_ms,
         "order_k": _k_stats(order_k_per_group),
         "order_plain_ms": order_plain_ms,
-        "order_bound_ms": max(order_bytes_ms, order_ops_ms),
-        "order_bound_by": "operations" if order_ops_ms >= order_bytes_ms else "bytes",
+        "order_bound_ms": order_bound_ms,
+        "order_bound_by": order_bound_by,
+        "order_box_tests": order_box_tests,
     }
     return rec
 
 
 def _order_large_tables(dev, rng):
-    """The order kernel against block_order on tables of random AABBs past
-    the vault's size: 16,384 blocks (keys sorted in shared memory) and
-    32,768 (past shared memory: keys sorted in device memory). 100 rays in
-    4 groups, the last group dead. Raises on any difference."""
+    """The order kernel against cull_order of block_order and block_keep
+    on tables of random AABBs past the vault's size, at 8 slices: 16,384
+    blocks (keys sorted in shared memory) and 32,768 (past shared memory:
+    keys sorted in device memory). 100 rays in 4 groups, the last group
+    dead. Raises on any difference."""
     import numpy as np
     import torch
 
     from rayverb_tpu_torch.ops import intersect_cuda
-    from rayverb_tpu_torch.ops.intersect import block_order
+    from rayverb_tpu_torch.ops.intersect import super_aabb
 
     out = []
     for nb in (16384, 32768):
@@ -481,15 +542,19 @@ def _order_large_tables(dev, rng):
         d = rng.standard_normal((100, 3)).astype(np.float32)
         d /= np.linalg.norm(d, axis=1, keepdims=True)
         tm = np.where(np.arange(100) < 96, np.inf, 0.0).astype(np.float32)
-        args = [torch.from_numpy(x).to(dev) for x in (o, d, tm, box)]
-        kern = intersect_cuda.block_order_cuda(*args)
-        plain = block_order(*args)
-        rec = {"nblocks": nb, "groups": int(kern.shape[0]),
-               "mismatch": int((kern != plain).sum()),
-               "ms": _cuda_ms(lambda: intersect_cuda.block_order_cuda(*args), 3)}
+        o, d, tm, aabb, boxes = (torch.from_numpy(x).to(dev)
+                                 for x in (o, d, tm, box, super_aabb(box)))
+
+        def launch():
+            return intersect_cuda.block_order_cuda(o, d, tm, aabb, boxes, 8)
+
+        got = launch()
+        rec = {"nblocks": nb, "groups": int(got[0].shape[0]),
+               "mismatch": _order_mismatch(got, o, d, tm, None, aabb, 8, cpu=False),
+               "ms": _cuda_ms(launch, 3)}
         out.append(rec)
         if rec["mismatch"]:
-            raise AssertionError(f"order kernel != block_order on a large table: {rec}")
+            raise AssertionError(f"order kernel != its plain version on a large table: {rec}")
     return out
 
 
@@ -517,9 +582,9 @@ def _phase_kernel(ph, dev):
     d = torch.from_numpy(morton_sort(random_directions(n, seed=0))).to(dev)
     o = src.expand(n, 3).contiguous()
     batches = [_compare_batch("primary", soup, o, d, inf, zero)]
-    order, slices = sweep_schedule(o, d, inf, soup.block_aabb)
+    order, slices, counts = sweep_schedule(o, d, inf, None, soup)
     batches[0]["epilogue"] = _epilogue_record(
-        soup, (o, d, soup.packed, soup.block_aabb, inf, zero), order, slices, n)
+        soup, (o, d, soup.packed, soup.block_aabb, inf, zero), order, slices, n, counts)
 
     first = closest_hit(o, d, soup, impl="plain")
     t_safe = torch.where(first.hit, first.t, 0.0)
@@ -968,7 +1033,7 @@ def _phase_north_star(ph, dev, scene, hall_loads):
     from rayverb_tpu_torch.config.schema import parse_config
     from rayverb_tpu_torch.device import card_name_and_power
     from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
-    from rayverb_tpu_torch.ops.intersect import block_order, soup_from_scene
+    from rayverb_tpu_torch.ops.intersect import CLOSEST_SLICES, soup_from_scene
     from rayverb_tpu_torch.ops.order_check import order_keys
     from rayverb_tpu_torch.ops.render import render_fused
     from rayverb_tpu_torch.probe import NORTH_STAR
@@ -1022,18 +1087,23 @@ def _phase_north_star(ph, dev, scene, hall_loads):
     o = torch.tensor(cfg.source_position, device=dev).expand(m, 3).contiguous()
     tm = torch.full((m,), float("inf"), device=dev)
     order_args = (o, d, tm, soup.block_aabb)
-    order_ms = _cuda_ms(lambda: intersect_cuda.block_order_cuda(*order_args), 5)
-    order_device_ms = _profiled_ms(
-        lambda: intersect_cuda.block_order_cuda(*order_args), "closest_hit_order", 20)
-    order = intersect_cuda.block_order_cuda(*order_args)
-    if not torch.equal(order, block_order(*order_args)):
-        raise AssertionError("the order kernel differs from block_order at 1M rays")
+
+    def launch():
+        return intersect_cuda.block_order_cuda(*order_args, soup.super_aabb, CLOSEST_SLICES)
+
+    order_ms = _cuda_ms(launch, 5)
+    order_device_ms = _profiled_ms(launch, "closest_hit_order", 20)
+    order, counts = launch()
+    if _order_mismatch((order, counts), o, d, tm, None, soup.block_aabb, CLOSEST_SLICES,
+                       cpu=False):
+        raise AssertionError("the order kernel differs from its plain version at 1M rays")
+    primary_walk_share = int(counts.sum()) / order.numel()
+    order_bound_ms, _, _ = _order_bound(o, d, tm, None, soup.super_aabb, order, counts)
     # the sort half alone, as a yardstick: torch.argsort of the same keys
     keys = order_keys(*order_args)
     sort_ms = _cuda_ms(lambda: torch.argsort(keys, dim=1), 5)
     del keys
     nb = soup.block_aabb.shape[0]
-    order_bytes_ms = 4 * (m + order.shape[0] * 6 + 8 * nb + order.numel()) / HBM_BYTES_PER_S * 1e3
     # one pass against chunks, on a smaller population
     small = parse_config(json.dumps(dict(NORTH_STAR, rays=CHUNK_CHECK[0])))
     sdirs = random_directions(small.rays, seed=1)
@@ -1048,9 +1118,10 @@ def _phase_north_star(ph, dev, scene, hall_loads):
         "reflections": cfg.reflections, "runs": runs,
         "order_ms_per_launch_1M_rays": order_ms,
         "order_device_ms_1M_rays": order_device_ms,
+        "primary_walk_share": primary_walk_share,
         "order_sort_call_ms_1M_rays": sort_ms,
         "order_table_bytes": order.numel() * 4,
-        "order_bound_ms_1M_rays": order_bytes_ms,
+        "order_bound_ms_1M_rays": order_bound_ms,
         "chunk_check": {"rays": small.rays, "one_pass_chunks": one_info["chunks"],
                         "chunks": chunk_info["chunks"], "shape": list(chunked.shape),
                         "max_err_over_peak": err},
@@ -1085,12 +1156,14 @@ def _north_star_k(dev, scene):
     real = intersect.sweep_schedule
     seen = {}
 
-    def record(origins, dirs, t_max, block_aabb, decided=False):
+    def record(origins, dirs, t_max, t_decide, soup, pair_sums=None):
         if origins.shape[0] == cfg.rays:
-            kind = "shadow" if decided else ("bounce" if "primary" in seen else "primary")
+            kind = ("shadow" if t_decide is not None
+                    else ("bounce" if "primary" in seen else "primary"))
             if kind not in seen:
-                seen[kind] = _k_stats(order_k(order_keys(origins, dirs, t_max, block_aabb)))
-        return real(origins, dirs, t_max, block_aabb, decided)
+                seen[kind] = _k_stats(
+                    order_k(order_keys(origins, dirs, t_max, soup.block_aabb)))
+        return real(origins, dirs, t_max, t_decide, soup, pair_sums)
 
     # the recorder reads each sweep's order on the host: the eager loop,
     # since a captured bounce cannot wait for the device
@@ -1103,33 +1176,41 @@ def _north_star_k(dev, scene):
 
 
 def _phase_order(ph, dev, scene):
-    """The order kernel against block_order, on the card and on the CPU,
-    on order_cases at ORDER_CASE_BLOCKS (at 32,768 blocks its keys are
-    sorted in device memory, k = nblocks among them); then k per group of
-    the north star's primary, bounce and shadow batches."""
+    """The order kernel against cull_order of block_order and block_keep,
+    on the card and on the CPU, on order_cases at ORDER_CASE_BLOCKS (at
+    32,768 blocks its keys are sorted in device memory, k = nblocks among
+    them), at 1 and 8 slices, without and with any-hit thresholds; then k
+    per group of the north star's primary, bounce and shadow batches."""
+    import numpy as np
     import torch
 
     from rayverb_tpu_torch.ops import intersect_cuda
-    from rayverb_tpu_torch.ops.intersect import block_order
+    from rayverb_tpu_torch.ops.intersect import super_aabb
     from rayverb_tpu_torch.ops.order_check import order_cases, order_k, order_keys
 
     cases = []
     for nb in ORDER_CASE_BLOCKS:
         for name, *arrays in order_cases(nb):
-            args = [torch.from_numpy(x).to(dev) for x in arrays]
-            kern = intersect_cuda.block_order_cuda(*args)
-            plain = block_order(*args)
-            cpu = block_order(*(torch.from_numpy(x) for x in arrays))
+            o, d, t_max, aabb = (torch.from_numpy(x).to(dev) for x in arrays)
+            boxes = torch.from_numpy(super_aabb(arrays[3])).to(dev)
+            third = np.arange(arrays[2].shape[0]) % 3
+            decided = np.where(third == 1, arrays[2], np.where(third == 2, np.inf, 0))
+            mismatch = 0
+            for decide in (None, torch.from_numpy(decided.astype(np.float32)).to(dev)):
+                for slices in (1, 8):
+                    got = intersect_cuda.block_order_cuda(o, d, t_max, aabb, boxes, slices,
+                                                          t_decide=decide)
+                    mismatch += _order_mismatch(got, o, d, t_max, decide, aabb, slices)
             cases.append({
                 "nblocks": nb, "case": name,
-                "spill": intersect_cuda.order_launch(nb, kern.shape[0]).spill,
-                "k": order_k(order_keys(*args)).tolist(),
-                "mismatch": int((kern != plain).sum()) + int((kern.cpu() != cpu).sum()),
+                "spill": intersect_cuda.order_launch(nb, got[0].shape[0]).spill,
+                "k": order_k(order_keys(o, d, t_max, aabb)).tolist(),
+                "mismatch": mismatch,
             })
     mismatches = sum(c["mismatch"] for c in cases)
     ph.out.update(cases=cases, mismatches=mismatches)
     if mismatches or not any(c["spill"] and c["case"] == "k_all_inside" for c in cases):
-        raise AssertionError(f"order kernel != block_order on its edge cases: {cases}")
+        raise AssertionError(f"order kernel != its plain version on its edge cases: {cases}")
     ph.out["north_star_k"] = _north_star_k(dev, scene)
     return ph.out
 
@@ -1173,7 +1254,7 @@ def _device_ops(calls, reps):
     return out
 
 
-def _epilogue_record(soup, args, order, slices, m):
+def _epilogue_record(soup, args, order, slices, m, counts):
     """The sweep's epilogue (the slices' merge and the Hit, written by
     closest_hit_sweep itself) at one batch: the device operations of one
     intersect.closest_hit call counted by torch.profiler (no bounds, with
@@ -1202,9 +1283,10 @@ def _epilogue_record(soup, args, order, slices, m):
                                  f"on the device: {kinds}")
     one = torch.zeros((1,), device=o.device)
     prof = _profiled_many([
-        (lambda: intersect_cuda.closest_hit_cuda(*args, order, slices), "closest_hit_sweep"),
+        (lambda: intersect_cuda.closest_hit_cuda(*args, order, slices, counts=counts),
+         "closest_hit_sweep"),
         (one.zero_, "FillFunctor")], 20)
-    hit = intersect_cuda.closest_hit_cuda(*args, order, slices)
+    hit = intersect_cuda.closest_hit_cuda(*args, order, slices, counts=counts)
     null = closest_hit(o, d, soup)
     raw_t, raw_i = raw_from_hit(hit, t_max)
     mismatch = _hit_mismatch(hit_from_raw(raw_t, raw_i), hit) + _hit_mismatch(null, hit)
@@ -1811,7 +1893,8 @@ class _SweepCapture:
             if name is not None:
                 # an absent bound (the kernel reads +inf or 0) kept as a tensor
                 bounds = _bounds(o.shape[0], t_max, t_decide, o.device)
-                self.kept[name] = tuple(x.clone() for x in (o, d, *bounds, order)) + (slices,)
+                self.kept[name] = tuple(x.clone() for x in (o, d, *bounds, order)) + (
+                    slices, kw["counts"].clone())
             return real(o, d, packed, aabb, t_max, t_decide, order, slices, **kw)
 
         self._patches = [mock.patch.object(intersect_cuda, "closest_hit_cuda", spy),
@@ -1827,18 +1910,17 @@ class _SweepCapture:
 
 def _datagen_sweeps_vs_plain(soup, kept, npairs):
     """Each captured config 5 sweep against its plain version on the card:
-    the order kernel's table against block_order, and the sweep kernel's
+    the order kernel's order and counts against cull_order of block_order
+    and block_keep, and the sweep kernel's
     Hit and executed-pair counters against closest_hit_plain's, bit for
     bit (_run_schedule). The shadow sweep's live rows must come first and
     run pair-major: at most one run of equal origins (a mic) per pair.
     Returns a record per sweep."""
     import torch
 
-    from rayverb_tpu_torch.ops.intersect import block_order
-
     out = {}
     for name in ("primary", "shadow", "largest_image"):
-        o, d, t_max, t_decide, order, slices = kept[name]
+        o, d, t_max, t_decide, order, slices, counts = kept[name]
         live = t_max > 0
         nlive = int(live.sum())
         lo = o[:nlive]
@@ -1846,11 +1928,11 @@ def _datagen_sweeps_vs_plain(soup, kept, npairs):
         if name == "shadow" and not (bool(live[:nlive].all()) and origin_runs <= npairs):
             raise AssertionError(f"config 5's shadow rows are not pair-major with the dead "
                                  f"rows last: {origin_runs} origin runs, {nlive} live rows")
-        plain_order = block_order(o, d, t_max, soup.block_aabb)
-        order_mismatch = int((order != plain_order).sum())
+        order_mismatch = _order_mismatch((order, counts), o, d, t_max, t_decide,
+                                         soup.block_aabb, slices, cpu=False)
         t0 = time.perf_counter()
         rec, _ = _run_schedule(soup, (o, d, soup.packed, soup.block_aabb, t_max, t_decide),
-                               order, slices)
+                               order, slices, counts)
         torch.cuda.synchronize()
         out[name] = {"rows": o.shape[0], "live_rows": nlive, "origin_runs": origin_runs,
                      "slices": slices, "order_mismatch": order_mismatch,
@@ -1861,7 +1943,7 @@ def _datagen_sweeps_vs_plain(soup, kept, npairs):
                      "compare_s": time.perf_counter() - t0}
         if order_mismatch:
             raise AssertionError(f"config 5 {name} sweep: the order kernel differs from "
-                                 f"block_order: {out[name]}")
+                                 f"its plain version: {out[name]}")
     out["largest_image"]["call"] = kept["largest_image_call"]
     return out
 
@@ -2377,13 +2459,17 @@ def main() -> int:
         "launches": hrtf_runs[-1]["order_launches"],
         "launches_by_path": {k: r["order_launches"] for k, r in paths.items()},
         "max_abs_err": float(max(b["order_mismatch"] for b in batches + [hall])),
-        # device time per launch (torch.profiler); call_ms is the wrapper's
-        # call under CUDA events, which the host sets at the vault's size
+        # device time per launch, the order and its cull (torch.profiler);
+        # call_ms is the wrapper's call under CUDA events, which the host
+        # sets at the vault's size; plain_ms is cull_order of block_order
+        # and block_keep; bound_ms counts the rank, superblock and block box
+        # tests beside the bytes (_order_bound)
         "ms": primary["order_device_ms"],
         "call_ms": primary["order_ms"],
         "plain_ms": primary["order_plain_ms"],
         "bound_ms": primary["order_bound_ms"],
         "bound_by": primary["order_bound_by"],
+        "box_tests": primary["order_box_tests"],
         # no single PyTorch call computes the order; sort_call_ms is
         # torch.argsort of the same keys at 1M x 1,024, the sort half alone
         "library_ms": None,

@@ -26,15 +26,65 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
 import sys
+from unittest import mock
 
-from .order_ab import TURNS, _emit, _parent_wrapper, _smoke
+TURNS = ("parent", "change", "change", "parent")
 
 # (series, samples, per-series lengths or None): the modular vault's pass,
 # the vault's longest series, the datagen scan finalize's pass (8 pairs x 2
 # ears x 8 bands, each pair its own content length)
 SHAPES = ((16, 122_248, None), (16, 524_288, None), (128, 32_768, "pairs"))
 REPS = 20
+
+
+def _emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def _parent_wrapper(parent):
+    """The other checkout's biquad_scan_cuda (ops/biquad_cuda.py) on its
+    own kernel library: its csrc/biquad_scan.cu built with this checkout's
+    nvcc flags into PARENT/rayverb_tpu_torch/_build/."""
+    from . import cuda_build
+
+    src = os.path.join(parent, "rayverb_tpu_torch", "csrc", "biquad_scan.cu")
+    out_dir = os.path.join(parent, "rayverb_tpu_torch", "_build")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "biquad_ab_parent.so")
+    proc = subprocess.run(
+        [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", lib_path, src],
+        capture_output=True, text=True, timeout=cuda_build.NVCC_TIMEOUT_S,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    so = ctypes.CDLL(lib_path)
+    spec = importlib.util.spec_from_file_location(
+        "rayverb_tpu_torch.ops._ab_parent_biquad_cuda",
+        os.path.join(parent, "rayverb_tpu_torch", "ops", "biquad_cuda.py"),
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    # its _kernel() binds its own argument types on the library it loads
+    with mock.patch.object(cuda_build, "load_library", lambda *a: so):
+        mod._kernel()
+    return mod.biquad_scan_cuda
+
+
+def _smoke():
+    """chip_smoke.py at the checkout's root, for its timing helpers and
+    inputs; importing it runs nothing."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _inputs(series, samples, lengths, rng, smoke):
@@ -68,9 +118,7 @@ def run(parent):
         raise RuntimeError("biquad_ab needs a CUDA device")
     smoke = _smoke()
     _emit({"card": card_name_and_power(), "torch_device": torch.cuda.get_device_name(0)})
-    wrap = {"parent": _parent_wrapper(parent, "biquad_scan.cu", "biquad_cuda",
-                                      "biquad_scan_cuda", "biquad_ab_parent.so"),
-            "change": biquad_cuda.biquad_scan_cuda}
+    wrap = {"parent": _parent_wrapper(parent), "change": biquad_cuda.biquad_scan_cuda}
     rng = np.random.default_rng(3)
     for series, samples, lengths in SHAPES:
         x, passes, lens = _inputs(series, samples, lengths, rng, smoke)

@@ -14,11 +14,15 @@
 //     positive, it is undecided (best_t >= t_decide) and its segment
 //     [EPSILON, best_t] meets the block's AABB (slab test)
 // The schedule is an input, shared with closest_hit_plain: each group of
-// kRays rays walks its own row of `order` (near to far: closest_hit_order,
-// whose plain version is intersect.py::block_order), cut into `slices`
-// contiguous runs.
+// kRays rays walks its own row of `order` (near to far and culled:
+// closest_hit_order, whose plain versions are intersect.py::block_order,
+// block_keep and cull_order), cut into `slices` contiguous runs, of each
+// of which it walks the first counts[group][slice] entries.
 //
-// What bounds it on the H100: instruction issue. A pair test is ~40 FP32
+// What bounds it on the H100: instruction issue. The walk takes only the
+// entries the order kernel kept (design point 4), each a box test by the
+// group's 128 threads and a block barrier, so the pair tests and tile
+// loads are most of the work; a pair test is ~40 FP32
 // operations (one IEEE divide among them) on 13 floats of a triangle row
 // that every ray of a thread block shares; device-memory traffic is a few
 // bytes per ray. Built with --fmad=false, every multiply and add is its
@@ -73,16 +77,21 @@
 //      and four elementwise ops that mapped its outputs (PERF.md).
 //   4. Each group walks the blocks near to far (the order table, made on
 //      the card by closest_hit_order below), so the first wall's best_t
-//      slab-culls the blocks behind it. The table is (groups x nblocks)
-//      int32.
+//      slab-culls the blocks behind it. The order kernel also culls: it
+//      keeps only the blocks that some ray of the group can need at its
+//      bound, puts them first in each slice's run, and counts them
+//      (groups x slices int32). A slice walks only those, so the blocks no
+//      ray can reach cost neither a box test nor a barrier; on the north
+//      star's hall a group needed a few percent of its 1,024 blocks.
 //   5. A thread block stages one 128-row triangle tile at a time in shared
 //      memory (float4 loads, rows padded to 20 floats so that the 4 rows a
-//      ray's threads read at once fall in distinct banks); a tile that no
-//      ray of the block needs is neither loaded nor tested
-//      (__syncthreads_or). Each thread takes its rows four at a time: their
-//      n.o and n.d forms are independent chains, and the divide and the
-//      rest of the test run only for rows that pass divide_may_accept, an
-//      exact pre-test that never rejects a pair the full test accepts.
+//      ray's threads read at once fall in distinct banks); a kept block
+//      that no ray of the thread block needs at its running best is
+//      neither loaded nor tested (__syncthreads_or). Each thread takes its
+//      rows four at a time: their n.o and n.d forms are independent
+//      chains, and the divide and the rest of the test run only for rows
+//      that pass divide_may_accept, an exact pre-test that never rejects
+//      a pair the full test accepts.
 //   6. Executed pair tests (kTile per block a ray takes part in, per slice)
 //      are counted per ray. The epilogue adds them by row kind into a
 //      (8,) accumulator, the sweep's row ranges (at most kRanges, each
@@ -119,6 +128,8 @@ constexpr float kEps = 1e-4f;     // rayverb_tpu_torch.constants.EPSILON
 constexpr float kSlack = 1.0f + 0x1p-20f;
 // groups (warps) of an order thread block, at most
 constexpr int kOrderWarpsMax = 8;
+// blocks per superblock of the order kernel's cull (a warp's lanes)
+constexpr int kSuperBlocks = 32;
 // row kinds of the executed-pair accumulator, and row ranges of a sweep
 constexpr int kKinds = 4;
 constexpr int kRanges = 3;
@@ -156,6 +167,41 @@ __device__ __forceinline__ void slab_axis(float o, float dv, float iv,
 // >= t > EPSILON); an infinite or NaN product (best_t = inf) compares
 // false and leaves the pair to the full test. A PyTorch twin of this test
 // is held to that property in tests/test_torch_sweep_schedule.py.
+// A ray's line: origin, direction and the direction's reciprocals.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ origins,
+                                        const float* __restrict__ dirs,
+                                        int ray) {
+  Ray r;
+  r.ox = origins[3 * ray + 0];
+  r.oy = origins[3 * ray + 1];
+  r.oz = origins[3 * ray + 2];
+  r.dx = dirs[3 * ray + 0];
+  r.dy = dirs[3 * ray + 1];
+  r.dz = dirs[3 * ray + 2];
+  r.ivx = 1.0f / r.dx;
+  r.ivy = 1.0f / r.dy;
+  r.ivz = 1.0f / r.dz;
+  return r;
+}
+
+// The sweep's entry test of a ray against the box [lo, hi]: its segment
+// [EPSILON, bt] meets the box (slab test).
+__device__ __forceinline__ bool box_need(const Ray& r, float lx, float ly,
+                                         float lz, float hx, float hy,
+                                         float hz, float bt) {
+  float tnx, tfx, tny, tfy, tnz, tfz;
+  slab_axis(r.ox, r.dx, r.ivx, lx, hx, tnx, tfx);
+  slab_axis(r.oy, r.dy, r.ivy, ly, hy, tny, tfy);
+  slab_axis(r.oz, r.dz, r.ivz, lz, hz, tnz, tfz);
+  const float tn = fmaxf(fmaxf(tnx, tny), tnz);
+  const float tf = fminf(fminf(tfx, tfy), tfz);
+  return (tf >= fmaxf(tn, kEps)) && (tn <= bt);
+}
+
 __device__ __forceinline__ bool divide_may_accept(float ow, float dw,
                                                   float bt) {
   const bool opposite = (ow > 0.f && dw < 0.f) || (ow < 0.f && dw > 0.f);
@@ -210,7 +256,8 @@ closest_hit_sweep(const float* __restrict__ origins,
                   const float* __restrict__ t_decide,
                   const float4* __restrict__ packed,
                   const float* __restrict__ aabb,
-                  const int* __restrict__ order, int m, int nblocks,
+                  const int* __restrict__ order,
+                  const int* __restrict__ counts, int m, int nblocks,
                   int slices, unsigned long long* __restrict__ keys,
                   unsigned int* __restrict__ arrivals,
                   unsigned long long* __restrict__ executed,
@@ -228,29 +275,24 @@ closest_hit_sweep(const float* __restrict__ origins,
   const int ray = group * kRays + threadIdx.x / kSplit;
   const bool in_range = ray < m;
 
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, INFINITY, INFINITY, INFINITY};
   float bt = 0.f, decide = 0.f;
   if (in_range) {
-    ox = origins[3 * ray + 0];
-    oy = origins[3 * ray + 1];
-    oz = origins[3 * ray + 2];
-    dx = dirs[3 * ray + 0];
-    dy = dirs[3 * ray + 1];
-    dz = dirs[3 * ray + 2];
+    r = load_ray(origins, dirs, ray);
     bt = ray_bound(t_max, ray);
     decide = t_decide != nullptr ? t_decide[ray] : 0.f;
   }
-  const float ivx = 1.0f / dx;
-  const float ivy = 1.0f / dy;
-  const float ivz = 1.0f / dz;
+  const float ox = r.ox, oy = r.oy, oz = r.oz;
+  const float dx = r.dx, dy = r.dy, dz = r.dz;
   const bool live = in_range && (bt > 0.f);
   int bi = -1;
   unsigned long long count = 0;
 
-  // positions [first, end) of this slice in the group's order row (the
-  // plain version's slice_bounds)
+  // this slice's run of the group's order row starts at `first` (the
+  // plain version's slice_bounds); the walk takes its kept entries, which
+  // the order kernel put first
   const int first = slice * nblocks / slices;
-  const int end = (slice + 1) * nblocks / slices;
+  const int end = first + counts[(size_t)group * slices + slice];
   const int* row_order = order + (size_t)group * nblocks;
 
   for (int p = first; p < end; ++p) {
@@ -258,13 +300,7 @@ closest_hit_sweep(const float* __restrict__ origins,
     bool need = false;
     if (live && bt >= decide) {
       const float* box = aabb + 8 * b;
-      float tnx, tfx, tny, tfy, tnz, tfz;
-      slab_axis(ox, dx, ivx, box[0], box[3], tnx, tfx);
-      slab_axis(oy, dy, ivy, box[1], box[4], tny, tfy);
-      slab_axis(oz, dz, ivz, box[2], box[5], tnz, tfz);
-      float tn = fmaxf(fmaxf(tnx, tny), tnz);
-      float tf = fminf(fminf(tfx, tfy), tfz);
-      need = (tf >= fmaxf(tn, kEps)) && (tn <= bt);
+      need = box_need(r, box[0], box[1], box[2], box[3], box[4], box[5], bt);
     }
     // also the barrier that keeps the previous tile alive until every
     // thread is done with it
@@ -374,26 +410,42 @@ closest_hit_sweep(const float* __restrict__ origins,
   if (threadIdx.x == 0) arrivals[group] = 0u;
 }
 
-// The near-to-far block order of each group of kRays rays: one warp per
-// group, blockDim.x / 32 groups per thread block. Replaces the order table
-// that closest_hit_pallas computes with XLA
-// (rayverb_tpu/ops/intersect_pallas.py:604-646); its plain version is
-// intersect.py::block_order, which this kernel equals bit for bit.
+// The near-to-far block order of each group of kRays rays, and its cull:
+// one warp per group, blockDim.x / 32 groups per thread block. Replaces
+// the order table that closest_hit_pallas computes with XLA
+// (rayverb_tpu/ops/intersect_pallas.py:604-646); its plain versions are
+// intersect.py::block_order (the order) and block_keep with cull_order
+// (the cull), which this kernel equals bit for bit.
 //
-// The group's first live ray (t_max > 0; the first row of a dead group)
-// ranks every block by where its line enters the block's AABB (0 from
-// inside, +inf when it misses), key = rank bits * nblocks + block index,
-// and the row is the keys in ascending order. Every key of rank +inf is
-// larger than every finite one and those keys order by block index, so
-// the row is the k finite-rank keys sorted, then the +inf blocks in
-// ascending index. The kernel sorts only those k keys: the blocks the line
-// meets, 0-37 of the hall's 1,024 per group and 8-11 on average on the
-// north star's batches (chip_smoke.py prints k).
+// The order: the group's first live ray (t_max > 0; the first row of a
+// dead group) ranks every block by where its line enters the block's AABB
+// (0 from inside, +inf when it misses), key = rank bits * nblocks + block
+// index, and the order is the keys in ascending order. Every key of rank
+// +inf is larger than every finite one and those keys order by block
+// index, so the order is the k finite-rank keys sorted, then the +inf
+// blocks in ascending index. The kernel sorts only those k keys: the
+// blocks the line meets, 0-37 of the hall's 1,024 per group and 8-11 on
+// average on the north star's batches (chip_smoke.py prints k).
 //
-// What bounds it on the H100: the (groups x nblocks) int32 row written to
-// device memory (128 MB at 1 M rays x 1,024 blocks, 0.040 ms at 3.35
-// TB/s), then one slab test per (group, block) (~40 FP32 operations,
-// ~0.02 ms at 67 TFLOP/s). What the design does about it:
+// The cull: a block is kept when some ray of the group passes the sweep's
+// entry test on it at the ray's bound (live, bound >= t_decide, box_need
+// at bt = bound). A ray's running best only falls from its bound, so a
+// block that no ray passes there is never swept, by any slice at any
+// position. Each slice's run [f, e) of the order is written with its kept
+// blocks first and then the others, each in the order's order, and counts
+// (groups x slices) says how many are kept: the sweep walks only those, in
+// the order the whole run has them, so every ray executes the same tiles
+// as on the whole run.
+//
+// What bounds it on the H100: the cull's box tests. Without a coarser
+// level they would be 32 x nblocks per group (~1 G at 1 M rays x 1,024
+// blocks, ~50 instructions each: ~60 ms a north-star IR at the card's
+// issue rate). With superblocks of 32 blocks (intersect.py::super_aabb,
+// boxes that hold their blocks' boxes, built once with the sweep table)
+// it is nblocks / 32 superblock tests per ray, then one fine test per
+// block of a superblock and ray that met it. Then the (groups x nblocks)
+// int32 order written to device memory (128 MB at 1 M rays x 1,024
+// blocks, 0.040 ms at 3.35 TB/s). What the design does about it:
 //   1. One warp per group and no thread-block barrier: the representative
 //      is found with a ballot, the warps of a thread block run apart.
 //   2. Lane l ranks blocks l, l + 32, ...: the AABBs are read coalesced
@@ -401,17 +453,34 @@ closest_hit_sweep(const float* __restrict__ origins,
 //      an SM walk them in the same order, so that L1 can serve them.
 //   3. The finite keys are compacted by ballot and popc prefix sums into
 //      the warp's key buffer; one bit per block (the finite mask) places
-//      each +inf block at k + (its index - finite blocks below it), which
-//      a second pass writes, coalesced, once k is known.
+//      each +inf block at k + (its index - finite blocks below it) once k
+//      is known.
 //   4. k <= 32: a bitonic sort in registers across the warp (shuffles,
 //      padded with all-ones keys). Larger k: a bitonic sort of the next
-//      power of two in the key buffer, separated by __syncwarp only.
-//   5. The key buffer holds nblocks keys in shared memory, so no k
+//      power of two in the key buffer, separated by __syncwarp only. The
+//      sorted blocks, then the +inf ones, are written as int32 over the
+//      key buffer's first bytes, which then holds the order.
+//   5. The cull: lane l holds ray l. A ballot per superblock gives the
+//      rays whose segment meets its box; where there are any, lane l
+//      tests block 32 s + l against each of them in turn (the ray
+//      shuffled in), and a ballot gives the superblock's word of kept
+//      blocks, written over the finite mask. A superblock's box holds its
+//      blocks' boxes, and rounding is monotone in (lo - o) * iv, fminf and
+//      fmaxf are monotone and the |d| < 1e-30 branch depends on the
+//      origin's side of the box alone, so a ray that passes a block's test
+//      passes its superblock's: the coarse level rejects nothing that the
+//      fine test keeps (tests/test_torch_sweep_schedule.py holds a
+//      PyTorch twin to that).
+//   6. Each slice's run is written in two passes over it: a ballot count
+//      of its kept blocks, then each block at its place by ballot prefix
+//      sums, coalesced.
+//   7. The key buffer holds nblocks keys in shared memory, so no k
 //      overflows it; only a table whose buffer does not fit in shared
 //      memory (intersect_cuda.order_launch: past ~28,600 blocks) sorts in
 //      a device-memory scratch of (groups, nblocks) keys instead.
-// k is data-dependent and never read by the host: each warp takes its own
-// path.
+// k and the kept blocks are data-dependent and never read by the host:
+// each warp takes its own path. A stats call adds the kept entries and
+// groups x nblocks into two 64-bit counters (one atomicAdd each a group).
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr unsigned kInfBits = 0x7F800000u;  // float bits of +inf
 
@@ -463,12 +532,42 @@ __device__ void warp_sort_buffer(unsigned long long* keys, int p, int lane) {
   }
 }
 
+// ray `src`'s line and bound, from the lane that holds them
+__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
+  Ray q;
+  q.ox = __shfl_sync(kFull, r.ox, src);
+  q.oy = __shfl_sync(kFull, r.oy, src);
+  q.oz = __shfl_sync(kFull, r.oz, src);
+  q.dx = __shfl_sync(kFull, r.dx, src);
+  q.dy = __shfl_sync(kFull, r.dy, src);
+  q.dz = __shfl_sync(kFull, r.dz, src);
+  q.ivx = __shfl_sync(kFull, r.ivx, src);
+  q.ivy = __shfl_sync(kFull, r.ivy, src);
+  q.ivz = __shfl_sync(kFull, r.ivz, src);
+  return q;
+}
+
+// box_need against box b of a (lo x, lo y, lo z, hi x | hi y, hi z, pad,
+// pad) table, read through the read-only path
+__device__ __forceinline__ bool table_need(const Ray& r,
+                                           const float4* __restrict__ boxes,
+                                           int b, float bt) {
+  const float4 a = __ldg(boxes + 2 * b);
+  const float2 c = __ldg(reinterpret_cast<const float2*>(boxes + 2 * b + 1));
+  return box_need(r, a.x, a.y, a.z, a.w, c.x, c.y, bt);
+}
+
 __global__ void __launch_bounds__(kOrderWarpsMax * 32)
 closest_hit_order(const float* __restrict__ origins,
                   const float* __restrict__ dirs,
                   const float* __restrict__ t_max,
-                  const float4* __restrict__ aabb, int m, int nblocks,
-                  int* __restrict__ order, unsigned long long* spill) {
+                  const float* __restrict__ t_decide,
+                  const float4* __restrict__ aabb,
+                  const float4* __restrict__ super_aabb, int m, int nblocks,
+                  int slices, int* __restrict__ order,
+                  int* __restrict__ counts,
+                  unsigned long long* __restrict__ entry_sums,
+                  unsigned long long* spill) {
   extern __shared__ unsigned long long order_smem[];
   const int lane = threadIdx.x & 31;
   const int group = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -532,59 +631,154 @@ closest_hit_order(const float* __restrict__ origins,
   }
   __syncwarp();
 
+  // the k finite keys, sorted, as blocks at rowbuf[0, k): the key
+  // buffer's first bytes hold the row; key % nblocks is the block (a
+  // power of two)
+  int* rowbuf = reinterpret_cast<int*>(keys);
+  const unsigned long long index_mask = (unsigned long long)(nblocks - 1);
+  if (k > 0 && k <= 32) {
+    unsigned long long v = lane < (int)k ? keys[lane] : ~0ull;
+    v = warp_sort32(v, lane);
+    __syncwarp();  // every lane has read its key
+    if (lane < (int)k) rowbuf[lane] = (int)(v & index_mask);
+  } else if (k > 32) {
+    int p = 64;
+    while (p < (int)k) p <<= 1;  // <= nblocks: the buffer holds it
+    for (int i = (int)k + lane; i < p; i += 32) keys[i] = ~0ull;
+    __syncwarp();
+    warp_sort_buffer(keys, p, lane);
+    // in place, 32 at a time: the ints of positions [i0, i0 + 32) overlay
+    // keys [i0 / 2, i0 / 2 + 16), which this step or an earlier one read
+    for (int i0 = 0; i0 < (int)k; i0 += 32) {
+      const int i = i0 + lane;
+      const int blk = i < (int)k ? (int)(keys[i] & index_mask) : 0;
+      __syncwarp();
+      if (i < (int)k) rowbuf[i] = blk;
+      __syncwarp();
+    }
+  }
+  __syncwarp();
+
   // pass 2: the +inf blocks in ascending index after the k finite ones
-  int* row = order + (size_t)group * nblocks;
   unsigned finite_below = 0;  // finite blocks in the words before w
   for (int w = 0; w < words; ++w) {
     const unsigned ballot = finite_mask[w];
     const int b = 32 * w + lane;
     if (b < nblocks && ((ballot >> lane) & 1u) == 0u) {
-      row[k + b - (finite_below + __popc(ballot & below))] = b;
+      rowbuf[k + b - (finite_below + __popc(ballot & below))] = b;
     }
     finite_below += __popc(ballot);
   }
-
-  // the k finite keys, sorted; key % nblocks is the block (a power of two)
-  const unsigned long long index_mask = (unsigned long long)(nblocks - 1);
-  if (k == 0) return;
-  if (k <= 32) {
-    unsigned long long v = lane < (int)k ? keys[lane] : ~0ull;
-    v = warp_sort32(v, lane);
-    if (lane < (int)k) row[lane] = (int)(v & index_mask);
-    return;
-  }
-  int p = 64;
-  while (p < (int)k) p <<= 1;  // <= nblocks: the buffer holds it
-  for (int i = (int)k + lane; i < p; i += 32) keys[i] = ~0ull;
   __syncwarp();
-  warp_sort_buffer(keys, p, lane);
-  for (int i = lane; i < (int)k; i += 32) {
-    row[i] = (int)(keys[i] & index_mask);
+
+  // the cull: keep[w] (over the finite mask) marks the blocks that some
+  // ray of the group needs at its bound; lane l holds ray l, and blocks of
+  // `per` go to the fine test only where a ray meets their superblock's
+  // box, which holds each of theirs
+  unsigned* keep = finite_mask;
+  Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, INFINITY, INFINITY, INFINITY};
+  float bound = 0.f;
+  bool cand = false;
+  if (ray < m) {
+    r = load_ray(origins, dirs, ray);
+    bound = ray_bound(t_max, ray);
+    const float decide = t_decide != nullptr ? t_decide[ray] : 0.f;
+    cand = bound > 0.f && bound >= decide;
+  }
+  const int per = min(nblocks, kSuperBlocks);
+  for (int s = 0; s < nblocks / per; ++s) {
+    unsigned rays =
+        __ballot_sync(kFull, cand && table_need(r, super_aabb, s, bound));
+    unsigned word = 0u;
+    if (rays != 0u) {
+      // lane l tests block s * per + l against each ray that met the
+      // superblock
+      const bool have = lane < per;
+      const int b = s * per + (have ? lane : 0);
+      bool mark = false;
+      do {
+        const int src = __ffs(rays) - 1;
+        rays &= rays - 1u;
+        const Ray q = shfl_ray(r, src);
+        const float qb = __shfl_sync(kFull, bound, src);
+        mark = mark || table_need(q, aabb, b, qb);
+      } while (rays != 0u);
+      word = __ballot_sync(kFull, have && mark);
+    }
+    if (lane == 0) keep[s] = word;
+  }
+  __syncwarp();
+
+  // the row: each slice's run [f, e) of the order, its kept blocks first
+  // and then the rest, each in the order's order
+  int* row = order + (size_t)group * nblocks;
+  unsigned long long kept_all = 0;
+  for (int s = 0; s < slices; ++s) {
+    const int f = s * nblocks / slices;
+    const int e = (s + 1) * nblocks / slices;
+    int total = 0;
+    for (int p0 = f; p0 < e; p0 += 32) {
+      const int b = p0 + lane < e ? rowbuf[p0 + lane] : 0;
+      total += __popc(__ballot_sync(
+          kFull, p0 + lane < e && ((keep[b >> 5] >> (b & 31)) & 1u)));
+    }
+    int kept = 0, rest = 0;
+    for (int p0 = f; p0 < e; p0 += 32) {
+      const bool valid = p0 + lane < e;
+      const int b = valid ? rowbuf[p0 + lane] : 0;
+      const bool mine = valid && ((keep[b >> 5] >> (b & 31)) & 1u);
+      const unsigned kb = __ballot_sync(kFull, mine);
+      const unsigned rb = __ballot_sync(kFull, valid && !mine);
+      if (mine) {
+        row[f + kept + __popc(kb & below)] = b;
+      } else if (valid) {
+        row[f + total + rest + __popc(rb & below)] = b;
+      }
+      kept += __popc(kb);
+      rest += __popc(rb);
+    }
+    if (lane == 0) counts[(size_t)group * slices + s] = total;
+    kept_all += (unsigned)total;
+  }
+  if (entry_sums != nullptr && lane == 0) {
+    atomicAdd(entry_sums, kept_all);
+    atomicAdd(entry_sums + 1, (unsigned long long)nblocks);
   }
 }
 
 }  // namespace
 
 // C interface for ctypes: the near-to-far block order of each group of 32
-// rays (closest_hit_order). origins and dirs (m, 3), t_max (m,) or null
-// (every ray live), aabb
-// (nblocks, 8) float32 (16-byte aligned), order (ceil(m / 32), nblocks)
-// int32; nblocks a power of two. `warps` groups per thread block and
-// `smem` bytes of dynamic shared memory, as intersect_cuda.order_launch
+// rays and its cull (closest_hit_order). origins and dirs (m, 3), t_max
+// and t_decide (m,) or null (+inf and 0 for every ray), aabb (nblocks, 8)
+// and super_aabb (max(1, nblocks / 32), 8), each superblock's box, float32
+// (16-byte aligned); nblocks a power of two. Writes order (ceil(m / 32),
+// nblocks) int32, block_order's row with each of `slices` runs culled (its
+// kept blocks first), and counts (ceil(m / 32), slices) int32, the kept
+// blocks of each run; entry_sums, where not null, two int64 counters added
+// to: the kept entries and groups x nblocks. `warps` groups per thread block
+// and `smem` bytes of dynamic shared memory, as intersect_cuda.order_launch
 // chooses them; spill is null, and each warp sorts its keys in shared
 // memory, or (ceil(m / 32), nblocks) 64-bit scratch in device memory for
 // tables whose keys do not fit there. Returns cudaErrorInvalidValue
-// unless smem is warps x one warp's layout, else enqueues on `stream` and
-// returns the first CUDA error of the enqueue (0 if none).
+// unless smem is warps x one warp's layout, without super_aabb, order or
+// counts, or for slices outside [1, nblocks]; else enqueues on `stream` and returns the first CUDA error of the
+// enqueue (0 if none).
 extern "C" int rv_block_order(const void* origins, const void* dirs,
-                              const void* t_max, const void* aabb, int m,
-                              int nblocks, int warps, int smem, void* order,
-                              void* spill, void* stream) {
+                              const void* t_max, const void* t_decide,
+                              const void* aabb, const void* super_aabb,
+                              int m, int nblocks, int slices, int warps,
+                              int smem, void* order, void* counts,
+                              void* entry_sums, void* spill, void* stream) {
   if (m <= 0) return 0;
   if (nblocks <= 0 || (nblocks & (nblocks - 1)) != 0 || warps < 1 ||
       warps > kOrderWarpsMax || smem < 0 ||
       (size_t)smem != 8 * (size_t)warps *
                           order_warp_units(nblocks, spill != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (super_aabb == nullptr || order == nullptr || counts == nullptr ||
+      slices < 1 || slices > nblocks) {
     return (int)cudaErrorInvalidValue;
   }
   if (smem > 48 * 1024) {
@@ -596,8 +790,9 @@ extern "C" int rv_block_order(const void* origins, const void* dirs,
   closest_hit_order<<<(groups + warps - 1) / warps, warps * 32, smem,
                       (cudaStream_t)stream>>>(
       (const float*)origins, (const float*)dirs, (const float*)t_max,
-      (const float4*)aabb, m, nblocks, (int*)order,
-      (unsigned long long*)spill);
+      (const float*)t_decide, (const float4*)aabb, (const float4*)super_aabb,
+      m, nblocks, slices, (int*)order, (int*)counts,
+      (unsigned long long*)entry_sums, (unsigned long long*)spill);
   return (int)cudaGetLastError();
 }
 
@@ -605,7 +800,9 @@ extern "C" int rv_block_order(const void* origins, const void* dirs,
 // arrays: origins and dirs (m, 3) float32; t_max and t_decide (m,)
 // float32, or null (+inf and 0 for every ray); packed (nblocks * 128, 16)
 // float32, aabb (nblocks, 8) float32, order (ceil(m / 32), nblocks)
-// int32; keys (m,) 64-bit all-ones and arrivals (ceil(m / 32),) 32-bit
+// int32, counts (ceil(m / 32), slices) int32, the entries each slice
+// walks from the start of its run; keys (m,) 64-bit
+// all-ones and arrivals (ceil(m / 32),) 32-bit
 // zeros, the merge's scratch for slices > 1, which the launch leaves as
 // it found them (null for one slice); executed (m,) int64 added to (or
 // null: no per-ray counters); kind_sums (8,) int64, the executed pair
@@ -613,20 +810,21 @@ extern "C" int rv_block_order(const void* origins, const void* dirs,
 // counters) over the row ranges `ranges`, a host array
 // of kRanges (start, end, kind) triples (kind -1: unused; null: none);
 // the Hit: hit_t (m,) float32, hit_index (m,) int64, hit_found (m,)
-// bool. Returns cudaErrorInvalidValue without the scratch where slices >
-// 1 or for a kind outside [0, 4), else enqueues one launch on `stream`
+// bool. Returns cudaErrorInvalidValue without counts, without the scratch
+// where slices > 1 or for a kind outside [0, 4), else enqueues one launch on `stream`
 // and returns the first CUDA error of the enqueue (0 if none).
 extern "C" int rv_closest_hit(const void* origins, const void* dirs,
                               const void* t_max, const void* t_decide,
                               const void* packed, const void* aabb,
-                              const void* order, int m, int nblocks,
-                              int slices, void* keys, void* arrivals,
+                              const void* order, const void* counts,
+                              int m, int nblocks, int slices, void* keys,
+                              void* arrivals,
                               void* executed, void* kind_sums,
                               const int* ranges, void* hit_t,
                               void* hit_index, void* hit_found,
                               void* stream) {
   if (m <= 0) return 0;
-  if (slices < 1 || slices > nblocks ||
+  if (counts == nullptr || slices < 1 || slices > nblocks ||
       (slices > 1 && (keys == nullptr || arrivals == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -641,7 +839,8 @@ extern "C" int rv_closest_hit(const void* origins, const void* dirs,
   closest_hit_sweep<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)origins, (const float*)dirs, (const float*)t_max,
       (const float*)t_decide, (const float4*)packed, (const float*)aabb,
-      (const int*)order, m, nblocks, slices, (unsigned long long*)keys,
+      (const int*)order, (const int*)counts, m, nblocks, slices,
+      (unsigned long long*)keys,
       (unsigned int*)arrivals, (unsigned long long*)executed,
       (unsigned long long*)kind_sums, kr, (float*)hit_t,
       (long long*)hit_index, (bool*)hit_found);

@@ -27,6 +27,10 @@ Both implementations follow one schedule, computed once per sweep by
 own near-to-far order (``block_order``), cut into S contiguous slices
 (``sweep_slices``) that run independently, each with its own running best;
 the slices' results merge by the minimum of a 64-bit key (``pack_keys``).
+Each slice walks only the blocks that some ray of its group can need at
+its bound (``block_keep``), put first in its run (``cull_order``): the
+others would fail every ray's entry test, so the cull changes no result
+and no executed-pair count.
 Closest-hit rows (``t_decide = 0``) do not depend on the schedule; decided
 rows may return another witness blocker, never another verdict. Per ray,
 slice and block both decide at the block's entry whether it runs, and their
@@ -65,9 +69,16 @@ SWEEP_RAYS = 32
 CLOSEST_SLICES = 8
 DECIDED_TARGET_CTAS = 132 * 4
 
+# blocks per superblock: the order kernel culls a group's blocks by their
+# superblock's box first (csrc/closest_hit.cu kSuperBlocks)
+SUPER_BLOCKS = 32
+
 # rays per plain-sweep chunk (PLAIN_RAY_CHUNK / SWEEP_RAYS groups, each
 # with one gathered block): bounds the (rays, SWEEP_BLOCK) planes.
 PLAIN_RAY_CHUNK = 1 << 15
+
+# (ray, block) tests per chunk of the plain cull (block_keep)
+PLAIN_CULL_CHUNK = 1 << 22
 
 _BIG_I32 = 0x7FFFFFFF
 
@@ -86,6 +97,7 @@ class TriangleSoup(NamedTuple):
     packed: torch.Tensor      # (Tp, 16) Morton-sorted Woop rows
     block_aabb: torch.Tensor  # (Tp/SWEEP_BLOCK, 8) per-block [lo, hi, 0, 0]
     bounds: torch.Tensor      # (2, 3) scene AABB
+    super_aabb: torch.Tensor  # (superblocks, 8) super_aabb(block_aabb)
 
     @property
     def num_padded(self) -> int:
@@ -176,6 +188,23 @@ def build_sweep_table(v0, e0, e1, block: int = SWEEP_BLOCK):
     aabbs[empty, 0:3] = big
     aabbs[empty, 3:6] = big
     return packed, aabbs
+
+
+def super_aabb(block_aabb):
+    """(superblocks, 8) boxes of SUPER_BLOCKS consecutive blocks each (all
+    the blocks where there are fewer): [min of their lo, max of their hi,
+    0, 0], so that each holds its blocks' boxes, the empty blocks' far
+    point included. Host numpy float32, built with the sweep table."""
+    aabb = np.asarray(block_aabb, np.float32)
+    nb = aabb.shape[0]
+    per = min(nb, SUPER_BLOCKS)
+    if nb % per:
+        raise ValueError(f"{nb} blocks do not make superblocks of {per}")
+    boxes = aabb.reshape(nb // per, per, 8)
+    out = np.zeros((nb // per, 8), np.float32)
+    out[:, 0:3] = boxes[:, :, 0:3].min(axis=1)
+    out[:, 3:6] = boxes[:, :, 3:6].max(axis=1)
+    return out
 
 
 def scene_fields(v0, e0, e1, surface, specular, diffuse) -> dict:
@@ -444,19 +473,93 @@ def block_order(origins, dirs, t_max, block_aabb) -> torch.Tensor:
     return torch.argsort(key, dim=1).to(torch.int32)
 
 
-def sweep_schedule(origins, dirs, t_max, block_aabb, decided=False):
-    """(order, slices) of a sweep: block_order (for CUDA tensors its kernel,
-    intersect_cuda.block_order_cuda, in one launch) and sweep_slices. The
-    dispatcher computes it once and hands it to whichever version runs.
-    t_max None: every ray is live."""
+def block_keep(origins, dirs, t_max, t_decide, block_aabb) -> torch.Tensor:
+    """(groups, nblocks) bool: the blocks that some ray of each group of
+    SWEEP_RAYS consecutive rays can need, the plain version of the order
+    kernel's cull. A ray can need a block when the sweep's entry test
+    passes at the ray's bound: it is live (t_max > 0), undecided there
+    (t_max >= t_decide) and its segment [EPSILON, t_max] meets the block's
+    AABB. The running best only falls from t_max, so no slice ever sweeps
+    a block that every ray of its group fails here. t_max None: +inf;
+    t_decide None: 0. The (ray, block) tests run in chunks of
+    PLAIN_CULL_CHUNK."""
+    m = origins.shape[0]
+    nb = block_aabb.shape[0]
+    groups = -(-m // SWEEP_RAYS)
+    dev = origins.device
+    t_max, t_decide = _bounds(m, t_max, t_decide, dev)
+    cand = (t_max > 0) & (t_max >= t_decide)
+    inv = 1.0 / dirs
+    keep = torch.zeros((groups, nb), dtype=torch.bool, device=dev)
+    step = SWEEP_RAYS * max(1, PLAIN_CULL_CHUNK // (SWEEP_RAYS * max(nb, 1)))
+    for r0 in range(0, m, step):
+        rows = slice(r0, min(m, r0 + step))
+        need = cand[rows, None] & _slab_pass(
+            origins[rows, None, :], dirs[rows, None, :], inv[rows, None, :],
+            block_aabb, t_max[rows, None],
+        )  # (rays, nb)
+        pad = -need.shape[0] % SWEEP_RAYS
+        need = torch.cat([need, need.new_zeros((pad, nb))])
+        g0 = r0 // SWEEP_RAYS
+        keep[g0 : g0 + need.shape[0] // SWEEP_RAYS] = need.view(
+            -1, SWEEP_RAYS, nb).any(dim=1)
+    return keep
+
+
+def cull_order(order, keep, slices: int):
+    """(order, counts): each slice's run of ``order`` (slice_bounds) with
+    the blocks that ``keep`` (block_keep) marks first and the others
+    after, each in the order's order, and counts (groups, slices) int32,
+    the kept blocks of each run: the plain version of the order kernel's
+    culled rows."""
+    groups, nb = order.shape
+    kept = torch.gather(keep, 1, order.long())
+    run = torch.empty((nb,), dtype=torch.int64, device=order.device)
+    for s, (b, e) in enumerate(slice_bounds(nb, slices)):
+        run[b:e] = s
+    perm = torch.sort(run * 2 + (~kept).long(), dim=1, stable=True).indices
+    counts = torch.zeros((groups, slices), dtype=torch.int32, device=order.device)
+    counts.index_add_(1, run, kept.to(torch.int32))
+    return torch.gather(order, 1, perm), counts
+
+
+class Schedule(NamedTuple):
+    """A sweep's schedule (sweep_schedule)."""
+
+    order: torch.Tensor   # (groups, nblocks) int32, each slice's run culled
+    slices: int
+    counts: torch.Tensor  # (groups, slices) int32 entries each slice walks
+
+
+def sweep_schedule(origins, dirs, t_max, t_decide, soup, pair_sums=None) -> Schedule:
+    """(order, slices, counts) of a sweep against ``soup``: sweep_slices
+    (decided where t_decide is given), block_order culled by block_keep
+    (cull_order); for CUDA tensors all of it in one launch of the order
+    kernel (intersect_cuda.block_order_cuda). The dispatcher computes it
+    once and hands it to whichever version runs. t_max None: every ray is
+    live; t_decide None: 0. pair_sums (profiling.pair_sums): the kept
+    entries and groups x nblocks are added into
+    pair_sums[ORDER_ENTRIES] and the slot after it."""
+    m = origins.shape[0]
+    nb = soup.block_aabb.shape[0]
+    slices = sweep_slices(m, nb, t_decide is not None)
     if origins.is_cuda:
-        from .intersect_cuda import block_order_cuda as order_fn
-    else:
-        order_fn = block_order
-    return (
-        order_fn(origins, dirs, t_max, block_aabb),
-        sweep_slices(origins.shape[0], block_aabb.shape[0], decided),
+        from .intersect_cuda import block_order_cuda
+
+        order, counts = block_order_cuda(
+            origins, dirs, t_max, soup.block_aabb, soup.super_aabb, slices,
+            t_decide=t_decide, pair_sums=pair_sums,
+        )
+        return Schedule(order, slices, counts)
+    order, counts = cull_order(
+        block_order(origins, dirs, t_max, soup.block_aabb),
+        block_keep(origins, dirs, t_max, t_decide, soup.block_aabb),
+        slices,
     )
+    if pair_sums is not None:
+        pair_sums[profiling.ORDER_ENTRIES] += counts.sum()
+        pair_sums[profiling.ORDER_ENTRIES + 1] += counts.shape[0] * nb
+    return Schedule(order, slices, counts)
 
 
 def slice_bounds(nblocks: int, slices: int):
@@ -488,9 +591,9 @@ def unpack_keys(key):
     return hi.view(torch.float32), idx
 
 
-def check_schedule(order, slices, m, nblocks):
-    """Raise ValueError unless (order, slices) is a schedule for ``m`` rays
-    over ``nblocks`` blocks."""
+def check_schedule(order, slices, m, nblocks, counts=None):
+    """Raise ValueError unless (order, slices, counts) is a schedule for
+    ``m`` rays over ``nblocks`` blocks (counts None: every entry)."""
     groups = -(-m // SWEEP_RAYS)
     if tuple(order.shape) != (groups, nblocks) or order.dtype != torch.int32:
         raise ValueError(
@@ -499,21 +602,30 @@ def check_schedule(order, slices, m, nblocks):
         )
     if not 1 <= slices <= max(nblocks, 1):
         raise ValueError(f"slices must lie in [1, {nblocks}], got {slices}")
+    if counts is not None and (
+        tuple(counts.shape) != (groups, slices) or counts.dtype != torch.int32
+    ):
+        raise ValueError(
+            f"counts must be int32 of shape {(groups, slices)}, got "
+            f"{counts.dtype} {tuple(counts.shape)}"
+        )
 
 
 def closest_hit_plain(
     origins, dirs, packed, block_aabb, t_max, t_decide, order, slices, *,
-    with_stats=False, pair_sums=None, kinds=(),
+    counts=None, with_stats=False, pair_sums=None, kinds=(),
 ):
     """The kernel's plain version: raw (best_t (M,) f32, best_i (M,) i32,
     -1 = none) for rays (M, 3) against the packed table, with per-ray
     bounds ``t_max`` and any-hit thresholds ``t_decide`` (M,) f32, on the
-    schedule (``order``, ``slices``) of sweep_schedule.
+    schedule (``order``, ``slices``, ``counts``) of sweep_schedule.
 
     Each group of SWEEP_RAYS rays walks its row of ``order``, cut into
-    ``slices`` contiguous runs (slice_bounds); every slice keeps its own
-    running best, seeded from t_max. At each block's entry a ray takes part
-    in the block when its bound is positive, it is undecided in that slice
+    ``slices`` contiguous runs (slice_bounds), of each of which it walks
+    the first counts[group, slice] entries (counts None: the whole run);
+    every slice keeps its own running best, seeded from t_max. At each
+    block's entry a ray takes part in the block when its bound is
+    positive, it is undecided in that slice
     (``best_t >= t_decide``) and it passes the slab test against the
     slice's running ``best_t``. The slices' results are merged by the
     minimum of their pack_keys. The slices run position by position, all
@@ -522,16 +634,17 @@ def closest_hit_plain(
 
     with_stats=True also returns (M,) int64 executed pair tests per ray
     (SWEEP_BLOCK per block and slice the ray took part in). With
-    ``pair_sums`` (a (8,) int64 tensor, profiling.pair_sums) those of the
-    rows [start, end) of each (kind, start, end) of ``kinds`` are added into
-    pair_sums[kind], and the number of those rows that are live (t_max > 0)
-    into pair_sums[LIVE_ROWS + kind], as the kernel's epilogue adds them."""
+    ``pair_sums`` (a (PAIR_SUMS,) int64 tensor, profiling.pair_sums) those
+    of the rows [start, end) of each (kind, start, end) of ``kinds`` are
+    added into pair_sums[kind], and the number of those rows that are live
+    (t_max > 0) into pair_sums[LIVE_ROWS + kind], as the kernel's epilogue
+    adds them."""
     count_rows = with_stats or pair_sums is not None
     m = origins.shape[0]
     nb = block_aabb.shape[0]
     blk = packed.shape[0] // nb
     dev = origins.device
-    check_schedule(order, slices, m, nb)
+    check_schedule(order, slices, m, nb, counts)
     groups = order.shape[0]
     pad = groups * SWEEP_RAYS - m
 
@@ -552,8 +665,12 @@ def closest_hit_plain(
     live = t_max > 0
     order = order.long()
     bounds = slice_bounds(nb, slices)
+    walk = None if counts is None else counts.long().T  # (S, groups)
+    steps = max(e - b for b, e in bounds)
+    if walk is not None:
+        steps = int(walk.max()) if walk.numel() else 0
     chunk = max(1, PLAIN_RAY_CHUNK // SWEEP_RAYS)
-    for p in range(max(e - b for b, e in bounds)):
+    for p in range(steps):
         sl = [s for s, (b, e) in enumerate(bounds) if b + p < e]
         cols = torch.tensor([bounds[s][0] + p for s in sl], device=dev)
         sl = torch.tensor(sl, device=dev)
@@ -564,6 +681,8 @@ def closest_hit_plain(
             & (bt >= t_decide)
             & _slab_pass(o, d, inv, block_aabb[blocks][:, :, None, :], bt)
         )  # (S', groups, SWEEP_RAYS)
+        if walk is not None:
+            active &= (p < walk[sl])[..., None]
         if count_rows:
             executed += blk * active.sum(dim=0)
         ks, gs = torch.nonzero(active.any(dim=-1), as_tuple=True)
@@ -654,14 +773,17 @@ def closest_hit(
     stops refining, so its (t, index) may be a witness blocker rather than
     the closest; pass it only for rows whose consumer reads the verdict.
 
-    With the kernel a call is two launches, the order kernel and the sweep
-    (which writes the Hit and adds the counters).
+    With the kernel a call is two launches, the order kernel (the order
+    and its cull) and the sweep (which writes the Hit and adds the
+    counters).
 
     with_stats=True returns (Hit, executed pair tests per ray). pair_sums
-    (a (8,) int64 tensor, profiling.pair_sums) and ``kinds``: the executed
-    pair tests of the rows [start, end) of each (kind, start, end) are
+    (a (PAIR_SUMS,) int64 tensor, profiling.pair_sums) and ``kinds``: the
+    executed pair tests of the rows [start, end) of each (kind, start, end) are
     added into pair_sums[kind], and its live rows into pair_sums[LIVE_ROWS
-    + kind] (closest_hit_plain).
+    + kind] (closest_hit_plain); the order's kept entries and groups x
+    nblocks into pair_sums[ORDER_ENTRIES] and the slot after it
+    (sweep_schedule).
 
     A call is the span rv.closest_hit (attrs rows, kinds) with the spans
     rv.block_order and rv.sweep, the host side of the two launches, and
@@ -674,32 +796,30 @@ def closest_hit(
     with profiling.span("rv.closest_hit", rows=m, kinds=kinds):
         origins = origins.to(torch.float32).contiguous()
         dirs = dirs.to(torch.float32).contiguous()
-        decided = t_decide is not None
+        # an absent bound stays absent: the kernels read +inf or 0
+        t_max, t_decide = (
+            None if x is None else x.to(torch.float32).contiguous()
+            for x in (t_max, t_decide)
+        )
+        with profiling.span("rv.block_order"):
+            order, slices, counts = sweep_schedule(
+                origins, dirs, t_max, t_decide, soup, pair_sums
+            )
         if impl == "cuda" or (impl == "auto" and origins.is_cuda):
             from .intersect_cuda import closest_hit_cuda
 
-            # an absent bound stays absent: the kernels read +inf or 0
-            t_max, t_decide = (
-                None if x is None else x.to(torch.float32).contiguous()
-                for x in (t_max, t_decide)
-            )
-            with profiling.span("rv.block_order"):
-                order, slices = sweep_schedule(
-                    origins, dirs, t_max, soup.block_aabb, decided
-                )
             with profiling.span("rv.sweep"):
                 return closest_hit_cuda(
                     origins, dirs, soup.packed, soup.block_aabb, t_max, t_decide,
-                    order, slices, with_stats=with_stats, pair_sums=pair_sums,
-                    kinds=kinds,
+                    order, slices, counts=counts, with_stats=with_stats,
+                    pair_sums=pair_sums, kinds=kinds,
                 )
         t_max, t_decide = _bounds(m, t_max, t_decide, origins.device)
-        with profiling.span("rv.block_order"):
-            order, slices = sweep_schedule(origins, dirs, t_max, soup.block_aabb, decided)
         with profiling.span("rv.sweep"):
             out = closest_hit_plain(
                 origins, dirs, soup.packed, soup.block_aabb, t_max, t_decide, order,
-                slices, with_stats=with_stats, pair_sums=pair_sums, kinds=kinds,
+                slices, counts=counts, with_stats=with_stats, pair_sums=pair_sums,
+                kinds=kinds,
             )
             hit = hit_from_raw(out[0], out[1])
         return (hit, out[2]) if with_stats else hit

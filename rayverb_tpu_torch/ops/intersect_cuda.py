@@ -7,8 +7,8 @@ wrapper computes (intersect_pallas.py:604-646).
 The kernel is built with nvcc at first use (cuda_build) and called through
 its C interface with ctypes. This module imports without nvcc or a GPU;
 nothing is built until the first launch. The plain versions of the kernels
-are intersect.closest_hit_plain (with intersect.hit_from_raw) and
-intersect.block_order.
+are intersect.closest_hit_plain (with intersect.hit_from_raw), and
+intersect.block_order with its cull, block_keep and cull_order.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import functools
 from typing import NamedTuple
 
 import torch
+
+from ..utils.profiling import ORDER_ENTRIES, PAIR_SUMS
 
 # launches since import (or since the caller last reset them) of the
 # sweep kernel and of the block-order kernel; each wrapper adds one per
@@ -37,14 +39,14 @@ def _kernel():
 
         lib = load_library("closest_hit", ["closest_hit.cu"])
         sweep = lib.rv_closest_hit
-        sweep.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+        sweep.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p
         ] * 9
         sweep.restype = ctypes.c_int
         order = lib.rv_block_order
-        order.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        order.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p
-        ] * 3
+        ] * 5
         order.restype = ctypes.c_int
         _fn = (sweep, order)
     return _fn
@@ -104,13 +106,21 @@ def order_launch(nblocks: int, groups: int) -> OrderLaunch:
     return OrderLaunch(warps, warps * per_warp, spill)
 
 
-def block_order_cuda(origins, dirs, t_max, block_aabb):
-    """(groups, nblocks) int32 near-to-far block order of each group of
-    SWEEP_RAYS rays: intersect.block_order, computed by the CUDA kernel
-    closest_hit_order in one launch on the current stream. The table's
-    block count must be a power of two (build_sweep_table's); the tensors
-    contiguous float32 on one CUDA device, the AABBs 16-byte aligned;
-    t_max None: every ray is live."""
+def block_order_cuda(origins, dirs, t_max, block_aabb, super_aabb, slices, *,
+                     t_decide=None, pair_sums=None):
+    """(order, counts) of a sweep in ``slices`` slices, computed by the CUDA
+    kernel closest_hit_order in one launch on the current stream: order
+    (groups, nblocks) int32 and counts (groups, slices) int32,
+    intersect.cull_order of intersect.block_order (each group of
+    SWEEP_RAYS rays' near-to-far block order) and of intersect.block_keep
+    (the bounds t_max and t_decide, None for +inf and 0). ``super_aabb``
+    is intersect.super_aabb of the table (TriangleSoup.super_aabb, checked
+    where params.soup_from_numpy builds it). Where pair_sums
+    (profiling.pair_sums) is given, the kept entries and groups x nblocks
+    are added into pair_sums[ORDER_ENTRIES] and the slot after it. The
+    table's block count must be a power of two (build_sweep_table's); the
+    tensors contiguous float32 on one CUDA device, the boxes 16-byte
+    aligned; t_max None: every ray is live."""
     global order_launches
     if not origins.is_cuda:
         raise ValueError(
@@ -126,16 +136,23 @@ def block_order_cuda(origins, dirs, t_max, block_aabb):
     _check("dirs", dirs, (m, 3), torch.float32, dev)
     if t_max is not None:
         _check("t_max", t_max, (m,), torch.float32, dev)
+    if t_decide is not None:
+        _check("t_decide", t_decide, (m,), torch.float32, dev)
     _check("block_aabb", block_aabb, (nb, 8), torch.float32, dev)
     if nb <= 0 or nb & (nb - 1):
         raise ValueError(f"block count must be a power of two, got {nb}")
+    if not 1 <= slices <= nb:
+        raise ValueError(f"slices must lie in [1, {nb}], got {slices}")
+    if pair_sums is not None:
+        _check("pair_sums", pair_sums, (PAIR_SUMS,), torch.int64, dev)
     aabb_ptr = block_aabb.data_ptr()
     if aabb_ptr % 16:
         raise ValueError("block_aabb must be 16-byte aligned (the kernel reads float4)")
     groups = -(-m // SWEEP_RAYS)
     order = torch.empty((groups, nb), dtype=torch.int32, device=dev)
+    counts = torch.empty((groups, slices), dtype=torch.int32, device=dev)
     if m == 0:
-        return order
+        return order, counts
     launch = order_launch(nb, groups)
     spill = (
         torch.empty((groups, nb), dtype=torch.int64, device=dev)
@@ -149,19 +166,24 @@ def block_order_cuda(origins, dirs, t_max, block_aabb):
             origins.data_ptr(),
             dirs.data_ptr(),
             _ptr(t_max),
+            _ptr(t_decide),
             aabb_ptr,
+            super_aabb.data_ptr(),
             m,
             nb,
+            slices,
             launch.warps,
             launch.smem,
             order.data_ptr(),
+            counts.data_ptr(),
+            None if pair_sums is None else pair_sums.data_ptr() + 8 * ORDER_ENTRIES,
             None if spill is None else spill.data_ptr(),
             stream,
         )
     if err != 0:
         raise RuntimeError(f"block order kernel launch failed: CUDA error {err}")
     order_launches += 1
-    return order
+    return order, counts
 
 
 # (device, stream) -> (keys (n,) int64 all-ones, arrivals (ceil(n / 32),)
@@ -207,7 +229,7 @@ def _kind_ranges(kinds, m):
 
 def closest_hit_cuda(
     origins, dirs, packed, block_aabb, t_max, t_decide, order, slices, *,
-    with_stats=False, pair_sums=None, kinds=(),
+    counts, with_stats=False, pair_sums=None, kinds=(),
 ):
     """The Hit (intersect.Hit: t (M,) float32, +inf on a miss; index (M,)
     int64, 0 on a miss; hit (M,) bool), and with with_stats=True also the
@@ -216,10 +238,11 @@ def closest_hit_cuda(
     schedule, mapped by intersect.hit_from_raw: one launch of the CUDA
     kernel on the current stream, whose epilogue merges the slices and
     writes the Hit. t_max and t_decide may be None (+inf and 0 for every
-    ray). Every tensor must be a contiguous CUDA tensor on one device
-    (float32; ``order`` int32); anything else raises.
+    ray); counts (groups, slices) int32, the entries each slice walks
+    from the start of its run (intersect.cull_order's). Every tensor must be a contiguous CUDA tensor on one device
+    (float32; ``order`` and ``counts`` int32); anything else raises.
 
-    pair_sums, a (8,) int64 tensor (profiling.pair_sums): the executed
+    pair_sums, a (PAIR_SUMS,) int64 tensor (profiling.pair_sums): the executed
     pair tests of the rows [start, end) of each (kind, start, end) of
     ``kinds`` (at most KIND_RANGES) are added into pair_sums[kind], and the
     rows of the range that enter live (t_max > 0) into pair_sums[4 + kind],
@@ -248,13 +271,14 @@ def closest_hit_cuda(
         _check("t_decide", t_decide, (m,), torch.float32, dev)
     _check("packed", packed, (nb * SWEEP_BLOCK, 16), torch.float32, dev)
     _check("block_aabb", block_aabb, (nb, 8), torch.float32, dev)
-    check_schedule(order, slices, m, nb)
+    check_schedule(order, slices, m, nb, counts)
     _check("order", order, order.shape, torch.int32, dev)
+    _check("counts", counts, counts.shape, torch.int32, dev)
     if packed.data_ptr() % 16:
         raise ValueError("packed must be 16-byte aligned (the kernel reads float4)")
     ranges = None
     if pair_sums is not None:
-        _check("pair_sums", pair_sums, (8,), torch.int64, dev)
+        _check("pair_sums", pair_sums, (PAIR_SUMS,), torch.int64, dev)
         ranges = _kind_ranges(kinds, m)
     hit = Hit(
         t=torch.empty((m,), dtype=torch.float32, device=dev),
@@ -277,6 +301,7 @@ def closest_hit_cuda(
                 packed.data_ptr(),
                 block_aabb.data_ptr(),
                 order.data_ptr(),
+                counts.data_ptr(),
                 m,
                 nb,
                 slices,

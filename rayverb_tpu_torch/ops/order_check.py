@@ -1,7 +1,8 @@
 """The block order's edge cases and sort keys, shared by the CPU tests
-(tests/test_torch_order.py), chip_smoke.py and order_ab: each case is a
-batch on which the order kernel (intersect_cuda.block_order_cuda) must
-equal its plain version (intersect.block_order) bit for bit.
+(tests/test_torch_order.py) and chip_smoke.py: each case is a batch on
+which the order kernel (intersect_cuda.block_order_cuda) must equal its
+plain version (intersect.cull_order of intersect.block_order and
+intersect.block_keep) bit for bit.
 
 The keys are block_order's own (rank bits * nblocks + block index); those
 below 0x7F800000 * nblocks are the k blocks of finite rank that the kernel

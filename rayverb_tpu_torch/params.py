@@ -4,8 +4,9 @@ The system has no weights: its state is the compiled scene. These are the
 fields of the JAX ``TriangleSoup`` (rayverb_tpu/ops/intersect.py:31-72):
 triangle geometry, surface tables and the sweep kernel's packed Woop table
 with its block AABBs. ``soup_from_numpy`` builds the port's soup from them
-as numpy arrays, so a soup built by either package can be handed to the
-other and compared byte for byte.
+as numpy arrays (deriving from the block AABBs the superblocks' boxes of
+the order kernel's cull), so a soup built by either package can be handed
+to the other and compared byte for byte.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .ops.intersect import SWEEP_BLOCK, TriangleSoup
+from .ops.intersect import SWEEP_BLOCK, TriangleSoup, super_aabb
 
 SOUP_FIELDS = (
     "v0", "e0", "e1", "normal", "surface", "specular", "diffuse",
@@ -45,6 +46,11 @@ def soup_from_numpy(*, device=None, **fields) -> TriangleSoup:
     def f32(name):
         return torch.from_numpy(np.array(fields[name], np.float32)).to(dev)
 
+    # checked here once: the order kernel reads the boxes as float4 on
+    # every call (intersect_cuda.block_order_cuda)
+    boxes = torch.from_numpy(super_aabb(aabb)).to(dev)
+    if boxes.data_ptr() % 16:
+        raise ValueError("super_aabb must be 16-byte aligned")
     return TriangleSoup(
         v0=f32("v0"),
         e0=f32("e0"),
@@ -58,6 +64,7 @@ def soup_from_numpy(*, device=None, **fields) -> TriangleSoup:
         packed=f32("packed"),
         block_aabb=f32("block_aabb"),
         bounds=f32("bounds"),
+        super_aabb=boxes,
     )
 
 

@@ -139,12 +139,13 @@ def host_cost(soup, calls: int = 200) -> dict:
     o = ((soup.bounds[0] + soup.bounds[1]) / 2).expand(SWEEP_RAYS, 3).contiguous()
     t_max = torch.full((SWEEP_RAYS,), float("inf"), device=dev)
     t_decide = torch.zeros((SWEEP_RAYS,), device=dev)
-    order, slices = sweep_schedule(o, d, t_max, soup.block_aabb)
+    order, slices, counts = sweep_schedule(o, d, t_max, None, soup)
     parts = {
         "closest_hit": lambda: closest_hit(o, d, soup),
-        "sweep_schedule": lambda: sweep_schedule(o, d, t_max, soup.block_aabb),
+        "sweep_schedule": lambda: sweep_schedule(o, d, t_max, None, soup),
         "closest_hit_cuda": lambda: intersect_cuda.closest_hit_cuda(
-            o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices
+            o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices,
+            counts=counts,
         ),
         "one_torch_op": lambda: t_decide.add_(0.0),
     }

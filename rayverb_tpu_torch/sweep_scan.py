@@ -111,15 +111,16 @@ def _run_ms(events, runs):
 
 
 def scan(batches):
-    """Every recorded batch at every slice count: one row per batch, with
-    per slice count the device time of one launch (the sweep kernel under
-    torch.profiler, the mean over the launches it saw of REPS) and the
-    executed pairs."""
+    """Every recorded batch at every slice count, each on its own culled
+    order (the order kernel's, made before the timed runs): one row per
+    batch, with per slice count the device time of one launch (the sweep
+    kernel under torch.profiler, the mean over the launches it saw of
+    REPS) and the executed pairs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from .ops import intersect_cuda
-    from .ops.intersect import SWEEP_RAYS
+    from .ops.intersect import SWEEP_RAYS, super_aabb
 
     rows, calls = [], []
     for o, d, packed, aabb, t_max, t_decide, order, chosen in batches:
@@ -131,22 +132,25 @@ def scan(batches):
             "policy": chosen,
             "slices": {},
         }
+        boxes = torch.from_numpy(super_aabb(aabb.cpu().numpy())).to(aabb.device)
         for s in _slice_counts(chosen, aabb.shape[0]):
-            call = (o, d, packed, aabb, t_max, t_decide, order, s)
-            ex = intersect_cuda.closest_hit_cuda(*call, with_stats=True)[1]
+            culled, counts = intersect_cuda.block_order_cuda(
+                o, d, t_max, aabb, boxes, s, t_decide=t_decide)
+            call = (o, d, packed, aabb, t_max, t_decide, culled, s)
+            ex = intersect_cuda.closest_hit_cuda(*call, counts=counts, with_stats=True)[1]
             row["slices"][s] = {"ms": 0.0, "pairs": int(ex.sum())}
-            calls.append((row["slices"][s], call))
+            calls.append((row["slices"][s], call, counts))
         rows.append(row)
     # a fill kernel between the runs of two (batch, slices) pairs marks
     # where each run's kernels begin on the device's timeline
     marker = torch.zeros((1,), device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _, call in calls[:REPS]:
-            intersect_cuda.closest_hit_cuda(*call)
-        for _, call in calls:
+        for _, call, counts in calls[:REPS]:
+            intersect_cuda.closest_hit_cuda(*call, counts=counts)
+        for _, call, counts in calls:
             marker.fill_(1.0)
             for _ in range(REPS):
-                intersect_cuda.closest_hit_cuda(*call)
+                intersect_cuda.closest_hit_cuda(*call, counts=counts)
         marker.fill_(1.0)
         torch.cuda.synchronize()
     events = sorted(
@@ -154,7 +158,7 @@ def scan(batches):
         for ev in prof.events()
         if ev.device_type == torch.autograd.DeviceType.CUDA
     )
-    for (rec, _), ms in zip(calls, _run_ms(events, len(calls))):
+    for (rec, _, _), ms in zip(calls, _run_ms(events, len(calls))):
         rec["ms"] = ms
     return rows
 

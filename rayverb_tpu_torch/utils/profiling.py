@@ -27,9 +27,11 @@ device synchronisation, so that the first call's extra cost has names.
 
 Counters: ``closest_hit.calls`` and ``closest_hit.rows`` (host),
 ``pair_tests.<kind>`` and ``live_rows.<kind>`` (the sweep kernel's executed
-pair tests and the rows that enter it live, t_max > 0, by row kind, added
-on the device into the call's accumulator, ``pair_sums``, and copied to
-the host once, before the call's own final pull: ``stage``), ``hist.len``
+pair tests and the rows that enter it live, t_max > 0, by row kind) and
+``order.entries_kept`` and ``order.entries`` (the order entries that the
+order kernel's cull keeps for the sweeps to walk, and groups x nblocks),
+added on the device into the call's accumulator, ``pair_sums``, and copied
+to the host once, before the call's own final pull: ``stage``), ``hist.len``
 and ``finalize.bucket`` (render_fused's static histogram bound and the
 samples its finalize ran on), ``bounces.graph`` and ``bounces.eager``
 (the trace's bounces, by replay of phase B's CUDA graph or eagerly),
@@ -63,9 +65,12 @@ _Range = torch._C._profiler._RecordFunctionFast
 
 # row kinds of the sweep's accumulator (ops/trace.py SWEEP_KINDS); the
 # accumulator holds the executed pair tests by kind, then the live rows by
-# kind (LIVE_ROWS + kind)
+# kind (LIVE_ROWS + kind), then the order kernel's kept entries and its
+# groups x nblocks (ORDER_ENTRIES, ORDER_ENTRIES + 1): PAIR_SUMS int64s
 PAIR_KINDS = ("bounce", "imgvis", "seg", "shadow")
 LIVE_ROWS = len(PAIR_KINDS)
+ORDER_ENTRIES = 2 * len(PAIR_KINDS)
+PAIR_SUMS = ORDER_ENTRIES + 2
 
 # counter name -> (module, attribute) of the launch counters the kernel
 # wrappers keep; a module not imported yet has launched nothing
@@ -103,7 +108,7 @@ class Recording:
         self.counters: dict = defaultdict(int)
         self.marks: dict = {}
         self.launches0 = _launch_counts()
-        self.pairs = None   # (2 * len(PAIR_KINDS),) int64 on dev
+        self.pairs = None   # (PAIR_SUMS,) int64 on dev
         self.staged = None  # its host copy
 
     def open(self, name: str, start: float, attrs: dict) -> int:
@@ -147,6 +152,8 @@ class Recording:
             out.update((f"pair_tests.{k}", int(v)) for k, v in zip(PAIR_KINDS, sums))
             out.update((f"live_rows.{k}", int(v))
                        for k, v in zip(PAIR_KINDS, sums[LIVE_ROWS:]))
+            out["order.entries_kept"] = int(sums[ORDER_ENTRIES])
+            out["order.entries"] = int(sums[ORDER_ENTRIES + 1])
         return out
 
     def fold(self, flat: dict) -> dict:
@@ -299,15 +306,15 @@ def mark(key: str):
 
 
 def pair_sums():
-    """The current ``stats`` call's sweep accumulator, a (2 *
-    len(PAIR_KINDS),) int64 tensor on its device, zeroed once per call: the
-    executed pair tests by row kind, then the live rows by row kind; None
-    when the call counts none."""
+    """The current ``stats`` call's sweep accumulator, a (PAIR_SUMS,)
+    int64 tensor on its device, zeroed once per call: the executed pair
+    tests by row kind, the live rows by row kind, then the order kernel's
+    kept entries and entries; None when the call counts none."""
     rec = _current
     if rec is None or not rec.stats or rec.dev is None:
         return None
     if rec.pairs is None:
-        rec.pairs = torch.zeros((2 * len(PAIR_KINDS),), dtype=torch.int64, device=rec.dev)
+        rec.pairs = torch.zeros((PAIR_SUMS,), dtype=torch.int64, device=rec.dev)
     return rec.pairs
 
 

@@ -3,7 +3,7 @@ bounce (ops/trace.py ``_BounceGraph``) against the eager loop
 (``_trace_impl(..., bounce_graph=False)``): the same kernels in the same
 order on the same data, so the histogram, the image slots and the IR are
 bit for bit the eager loop's, and a stats call counts the same sweeps,
-rows, pair tests, live rows and launches. This file imports no JAX; on the
+rows, pair tests, live rows, kept order entries and launches. This file imports no JAX; on the
 card run
 
     python -m pytest --noconftest -m card tests/test_torch_bounce_graph_card.py
@@ -36,7 +36,7 @@ DATAGEN = {
     "trim_tail": False,
 }
 CASES = ("vault", "vault_hrtf", "stonehenge", "datagen")
-COUNTERS = ("closest_hit.", "pair_tests.", "live_rows.", "launches.")
+COUNTERS = ("closest_hit.", "pair_tests.", "live_rows.", "order.", "launches.")
 
 
 @pytest.fixture

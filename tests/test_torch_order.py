@@ -1,5 +1,6 @@
 """The order kernel's schedule (rayverb_tpu_torch/csrc/closest_hit.cu,
-closest_hit_order) against its plain version, intersect.block_order.
+closest_hit_order) against its plain versions, intersect.block_order and
+its cull (block_keep, cull_order).
 
 The kernel cannot run here, so a numpy twin follows its schedule step by
 step: the representative ray by ballot, the ranks, the finite keys
@@ -7,9 +8,14 @@ compacted by ballot prefix sums with a finite mask per 32 blocks, the +inf
 blocks placed from that mask, and the finite keys sorted by the warp's
 register bitonic network (k <= 32) or by the buffer's bitonic network over
 the next power of two. The twin must equal block_order bit for bit on
-the edge cases of ops/order_check.py and on hypothesis' inputs. The
-kernel itself is held to block_order on the card by chip_smoke.py (phase
-order_vs_plain). The wrapper's launch rule (order_launch) is tested at the
+the edge cases of ops/order_check.py and on hypothesis' inputs. A second
+twin follows the kernel's cull (superblock ballots, each block tested
+against the rays that met its superblock, each slice's run written in two
+ballot passes) and must equal cull_order of block_order and block_keep
+bit for bit, order and counts. The
+kernel itself is held to cull_order of block_order and block_keep on the
+card by chip_smoke.py (phase order_vs_plain) and
+tests/test_torch_cull_card.py. The wrapper's launch rule (order_launch) is tested at the
 table sizes that matter."""
 
 import numpy as np
@@ -20,7 +26,9 @@ from hypothesis import strategies as st
 
 from rayverb_tpu_torch.constants import EPSILON
 from rayverb_tpu_torch.ops import intersect_cuda
-from rayverb_tpu_torch.ops.intersect import SWEEP_RAYS, block_order
+from rayverb_tpu_torch.ops.intersect import (
+    SWEEP_RAYS, block_keep, block_order, cull_order, slice_bounds, super_aabb,
+)
 from rayverb_tpu_torch.ops.order_check import order_cases, order_k, order_keys
 
 torch.set_num_threads(1)
@@ -199,6 +207,104 @@ def test_order_keys_and_k(nb):
         np.testing.assert_array_equal(order_k(keys).numpy(), _twin(*case)[1])
 
 
+# ---- the cull ----
+
+
+def _need(o, d, bound, boxes):
+    """(m, n) the kernel's box_need of each ray at its bound against each
+    box, in float32 with fminf's and fmaxf's NaN rule (np.fmin, np.fmax)."""
+    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+        inv = np.float32(1.0) / d
+        tn = tf = None
+        for a in range(3):
+            lo, hi = boxes[None, :, a], boxes[None, :, 3 + a]
+            oa = o[:, None, a]
+            near = (lo - oa) * inv[:, None, a]
+            far = (hi - oa) * inv[:, None, a]
+            tna, tfa = np.fmin(near, far), np.fmax(near, far)
+            zero = np.abs(d[:, None, a]) < np.float32(1e-30)
+            inside = (oa >= lo) & (oa <= hi)
+            tna = np.where(zero, np.where(inside, -np.inf, np.inf), tna).astype(np.float32)
+            tfa = np.where(zero, np.where(inside, np.inf, -np.inf), tfa).astype(np.float32)
+            tn = tna if tn is None else np.fmax(tn, tna)
+            tf = tfa if tf is None else np.fmin(tf, tfa)
+        return (tf >= np.fmax(tn, np.float32(EPSILON))) & (tn <= bound[:, None])
+
+
+def _ballot_place(out, row, keep_run, f):
+    """The kernel's write of one run: a ballot pass counts its kept
+    blocks, a second places each block by ballot prefix sums, kept from f,
+    the rest after them. Returns the kept count."""
+    n = keep_run.shape[0]
+    total = sum(int(keep_run[p0 : p0 + 32].sum()) for p0 in range(0, n, 32))
+    kept = rest = 0
+    for p0 in range(0, n, 32):
+        mine = keep_run[p0 : p0 + 32]
+        blocks = row[p0 : p0 + 32]
+        kb = np.cumsum(mine) - mine
+        rb = np.cumsum(~mine) - ~mine
+        out[f + kept + kb[mine]] = blocks[mine]
+        out[f + total + rest + rb[~mine]] = blocks[~mine]
+        kept += int(mine.sum())
+        rest += int((~mine).sum())
+    return total
+
+
+def _cull_twin(o, d, t_max, t_decide, aabb, slices):
+    """(order, counts) by the kernel's cull: lane l holds ray l of the
+    group; a superblock's ballot gives the candidates (live, undecided at
+    their bound) whose segment meets its box; lane j tests block 32 s + j
+    against each of them, and a ballot gives the superblock's word of kept
+    blocks; then each slice's run of the order is written in two passes."""
+    order, _ = _twin(o, d, t_max, aabb)
+    m, nb = o.shape[0], aabb.shape[0]
+    groups = order.shape[0]
+    per = min(nb, 32)
+    cand = (t_max > 0) & (t_max >= t_decide)
+    met = _need(o, d, t_max, super_aabb(aabb)) & cand[:, None]
+    fine = _need(o, d, t_max, aabb)
+    out = np.empty_like(order)
+    counts = np.zeros((groups, slices), np.int32)
+    for g in range(groups):
+        rays = np.arange(g * SWEEP_RAYS, min((g + 1) * SWEEP_RAYS, m))
+        words = np.zeros(-(-nb // 32), np.uint64)
+        for s in range(nb // per):
+            ballot = met[rays, s]
+            if ballot.any():
+                mark = fine[rays[ballot]][:, s * per : (s + 1) * per].any(axis=0)
+                words[s] = np.sum(mark.astype(np.uint64) << np.arange(per, dtype=np.uint64))
+        row = order[g]
+        keep = ((words[row >> 5] >> (row & 31).astype(np.uint64)) & np.uint64(1)).astype(bool)
+        for s, (f, e) in enumerate(slice_bounds(nb, slices)):
+            counts[g, s] = _ballot_place(out[g], row[f:e], keep[f:e], f)
+    return out, counts
+
+
+def _check_cull(o, d, t_max, t_decide, aabb, slices):
+    args = [torch.from_numpy(x) for x in (o, d, t_max, t_decide, aabb)]
+    want = cull_order(block_order(*args[:3], args[4]), block_keep(*args), slices)
+    got = _cull_twin(o, d, t_max, t_decide, aabb, slices)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    return got[1]
+
+
+@pytest.mark.parametrize("slices", [1, 3, 8])
+@pytest.mark.parametrize("nb,name", CASES, ids=[f"{nb}-{n}" for nb, n in CASES])
+def test_cull_twin_equals_cull_order_on_edge_cases(nb, name, slices):
+    """The cull twin equals cull_order of block_order and block_keep on
+    the order's edge cases, with and without any-hit thresholds (a third
+    of the rows decided at their bound, a third past it)."""
+    _, o, d, t_max, aabb = {c[0]: c for c in order_cases(nb)}[name]
+    for decide in (np.zeros_like(t_max),
+                   np.where(np.arange(t_max.shape[0]) % 3 == 1, t_max,
+                            np.where(np.arange(t_max.shape[0]) % 3 == 2,
+                                     np.float32(np.inf), 0)).astype(np.float32)):
+        counts = _check_cull(o, d, t_max, decide, aabb, slices)
+        if (t_max[64:] <= 0).all():  # a dead group keeps nothing
+            assert counts[2].sum() == 0
+
+
 # ---- the sorts on either side of 32 keys ----
 
 
@@ -254,6 +360,43 @@ def test_twin_equals_block_order_hypothesis(seed, log_nb, m, degenerate, inside_
     _check(*(np.ascontiguousarray(x, np.float32) for x in (o, d, t_max, aabb)))
 
 
+@settings(max_examples=40, deadline=None)
+@given(
+    seed=st.integers(0, 2**32 - 1),
+    log_nb=st.integers(0, 8),
+    m=st.integers(1, 100),
+    slices=st.integers(1, 9),
+    degenerate=st.sampled_from(["none", "zero", "tiny", "negzero", "denormal"]),
+)
+def test_cull_twin_equals_cull_order_hypothesis(seed, log_nb, m, slices, degenerate):
+    """Random tables (empty blocks' far points among them), rays with
+    axis-parallel and tiny direction components, finite, infinite and dead
+    bounds, and thresholds below, at and above them."""
+    rng = np.random.default_rng(seed)
+    nb = 1 << log_nb
+    lo = rng.uniform(-10, 10, (nb, 3))
+    hi = lo + rng.uniform(0.0, 12, (nb, 3))
+    empty = rng.random(nb) < 0.2
+    lo[empty] = hi[empty] = 1e30
+    o = rng.uniform(-8, 8, (m, 3))
+    d = rng.standard_normal((m, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if degenerate != "none":
+        axis = rng.integers(0, 3, m)
+        hit = rng.random(m) < 0.5
+        value = {"zero": 0.0, "tiny": 3e-31, "negzero": -0.0, "denormal": 1e-40}[degenerate]
+        d[hit, axis[hit]] = value
+    t_max = np.select([rng.random(m) < 0.5, rng.random(m) < 0.7],
+                      [np.inf, rng.uniform(0.5, 20, m)], rng.choice([0.0, -1.0], m))
+    t_decide = np.select([rng.random(m) < 0.5, rng.random(m) < 0.5],
+                         [0.0, t_max], rng.uniform(0.0, 25, m))
+    aabb = np.zeros((nb, 8))
+    aabb[:, 0:3] = lo
+    aabb[:, 3:6] = hi
+    _check_cull(*(np.ascontiguousarray(x, np.float32)
+                  for x in (o, d, t_max, t_decide, aabb)), min(slices, nb))
+
+
 # ---- the wrapper's launch rule ----
 
 SMEM_MAX = 227 * 1024
@@ -293,12 +436,6 @@ def test_block_order_cuda_refuses_cpu_tensors():
     before = intersect_cuda.order_launches
     with pytest.raises(ValueError, match="CUDA"):
         intersect_cuda.block_order_cuda(
-            torch.zeros((5, 3)), torch.ones((5, 3)), torch.ones(5), torch.zeros((8, 8)))
+            torch.zeros((5, 3)), torch.ones((5, 3)), torch.ones(5), torch.zeros((8, 8)),
+            torch.zeros((1, 8)), 1)
     assert intersect_cuda.order_launches == before
-
-
-def test_order_ab_usage():
-    from rayverb_tpu_torch import order_ab
-
-    assert order_ab.main([]) == 2
-    assert order_ab.main(["a", "b"]) == 2

@@ -7,8 +7,12 @@ reference kept below as it was written before slices and orders existed):
 closest-hit rows are bit-equal on every schedule, decided rows keep their
 verdicts and return real witnesses. They also hold PyTorch twins of the
 kernel's merge key and divide pre-test to the tie rule and to the exact
-pair test. The kernel itself is held to the plain version on the card by
-chip_smoke.py."""
+pair test. The cull (block_keep, cull_order) is held to a full walk of
+each slice's run of block_order on the vault and on a small hall, block by block to the
+reference's entry test at each ray's bound, and a twin of the order
+kernel's superblock test to the block test it gates. The kernel itself is
+held to the plain version on the card by chip_smoke.py and
+tests/test_torch_cull_card.py."""
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from rayverb_tpu import load_scene as jax_load_scene
 from rayverb_tpu_torch.constants import EPSILON
 from rayverb_tpu_torch.ops import intersect as port_isect
 from rayverb_tpu_torch.ops import intersect_cuda
+from rayverb_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -160,10 +165,10 @@ def _slice_counts(nb):
     return sorted({1, 2, 3, max(1, nb // 2)})
 
 
-def _plain(soup, o, d, t_max, decide, order, slices):
+def _plain(soup, o, d, t_max, decide, order, slices, counts=None):
     return port_isect.closest_hit_plain(
         o, d, soup.packed, soup.block_aabb, t_max, decide, order, slices,
-        with_stats=True,
+        counts=counts, with_stats=True,
     )
 
 
@@ -284,8 +289,8 @@ def test_dead_rows_return_their_bound():
     o = torch.zeros((6, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(6, 1)
     decide = torch.zeros(6)
-    order, slices = port_isect.sweep_schedule(o, d, t_max, soup.block_aabb)
-    bt, bi, ex = _plain(soup, o, d, t_max, decide, order, slices)
+    order, slices, counts = port_isect.sweep_schedule(o, d, t_max, None, soup)
+    bt, bi, ex = _plain(soup, o, d, t_max, decide, order, slices, counts)
     assert torch.equal(_bits(bt[:4]), _bits(t_max[:4]))
     assert bi[:4].tolist() == [-1] * 4 and ex[:4].tolist() == [0] * 4
     assert bi[4:].tolist() == [0, 0] and bt[4:].tolist() == [2.0, 2.0]
@@ -377,7 +382,7 @@ def test_schedule_checks_and_cpu_tensors():
     with pytest.raises(ValueError, match="slices"):
         port_isect.check_schedule(torch.zeros((1, 8), dtype=torch.int32), 9, 5, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        intersect_cuda.block_order_cuda(o, o, torch.ones(5), aabb)
+        intersect_cuda.block_order_cuda(o, o, torch.ones(5), aabb, torch.zeros((1, 8)), 1)
     assert isinstance(intersect_cuda.order_launches, int)
 
 
@@ -529,3 +534,238 @@ def test_divide_pretest_rejects_what_it_can_prove():
     bt = torch.tensor([10.0, 10.0, 10.0, 1.9, 2.0, float("inf")], dtype=torch.float32)
     got = _divide_may_accept(ow, dw, bt).tolist()
     assert got == [False, False, False, False, True, True]
+
+
+# ---- the cull ---------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def small_hall(tmp_path_factory):
+    """The benchmark's hall generator at ~20,000 triangles: 256 blocks, so
+    that a group needs few of them."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "portbench" / "scenes" / "gen_hall.py"
+    spec = importlib.util.spec_from_file_location("gen_hall", path)
+    gen_hall = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen_hall)
+    out = tmp_path_factory.mktemp("hall") / "hall.obj"
+    gen_hall.generate(str(out), 20_000)
+    scene = jax_load_scene(str(out), str(Path(__file__).resolve().parents[1]
+                                          / "assets" / "materials" / "mat.json"))
+    soup = port_isect.soup_from_scene(scene, device="cpu")
+    assert soup.block_aabb.shape[0] == 256
+    return soup, scene.bounds
+
+
+def _cull_soup(assets_dir, small_hall, name):
+    return small_hall if name == "hall" else _soup(assets_dir, name)
+
+
+def _cull_batch(seed, n, bounds, decided):
+    """_batch's rays, with a dead group (rays 32-63), every 7th ray along
+    an axis (the slab test's |d| < 1e-30 branch on two axes), every 11th
+    with one component of 1e-31, and, where decided, closest-hit rows of
+    t_max +inf among the any-hit rows."""
+    o, d, t_max, decide = _batch(seed, n, bounds, decided)
+    sign = torch.where(torch.arange(n) % 2 == 0, 1.0, -1.0)[:, None]
+    axes = torch.eye(3)[torch.arange(n) % 3] * sign
+    d = torch.where((torch.arange(n) % 7 == 0)[:, None], axes, d)
+    d[torch.arange(n) % 11 == 5, 1] = 1e-31
+    if decided:
+        t_max[torch.arange(n) % 5 == 0] = float("inf")
+    t_max[32:64] = 0.0
+    return o, d, t_max, decide
+
+
+def _need_at_bound(o, d, t_max, decide, aabb):
+    """(m, nb) the reference's entry test at each ray's bound: live,
+    undecided there, its segment meets the box."""
+    inv = 1.0 / d
+    cand = (t_max > 0) & (t_max >= decide)
+    return torch.stack(
+        [cand & _ref_slab_pass(o, d, inv, box, t_max) for box in aabb], dim=1)
+
+
+@pytest.mark.parametrize("decided", [False, True])
+@pytest.mark.parametrize("name", ["vault", "hall"])
+def test_cull_keeps_every_hit_and_pair_count(assets_dir, small_hall, name, decided):
+    """The culled schedule gives the full walk's Hit bit for bit and its
+    executed pairs per ray and per row kind, closest-hit and decided rows
+    alike (the same witness), with the live rows counted as before."""
+    soup, bounds = _cull_soup(assets_dir, small_hall, name)
+    o, d, t_max, decide = _cull_batch(21, 2_500, bounds, decided)
+    given = decide if decided else None
+    kinds = ((0, 0, 1_000), (3, 1_000, 2_500))
+    acc = torch.zeros(profiling.PAIR_SUMS, dtype=torch.int64)
+    order, slices, counts = port_isect.sweep_schedule(o, d, t_max, given, soup, acc)
+    full = port_isect.block_order(o, d, t_max, soup.block_aabb)
+    want_acc = torch.zeros(profiling.PAIR_SUMS, dtype=torch.int64)
+    args = (o, d, soup.packed, soup.block_aabb, t_max, decide)
+    got = port_isect.closest_hit_plain(*args, order, slices, counts=counts,
+                                       with_stats=True, pair_sums=acc, kinds=kinds)
+    want = port_isect.closest_hit_plain(*args, full, slices, with_stats=True,
+                                        pair_sums=want_acc, kinds=kinds)
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert bool((want[1] >= 0).any()) and int(want[2].sum()) > 0
+    e = profiling.ORDER_ENTRIES
+    assert torch.equal(acc[:e], want_acc[:e])
+    nb = soup.block_aabb.shape[0]
+    assert int(acc[e]) == int(counts.sum()) and int(acc[e + 1]) == order.shape[0] * nb
+    # the cull engages, and the dead group walks nothing
+    assert int(counts.sum()) < order.shape[0] * nb and int(counts[1].sum()) == 0
+    if name == "hall":  # unsorted rays: groups far less coherent than a trace's
+        assert int(counts.sum()) < order.shape[0] * nb // 2
+
+
+@pytest.mark.parametrize("decided", [False, True])
+@pytest.mark.parametrize("name", ["vault", "hall"])
+def test_cull_drops_only_blocks_no_ray_needs(assets_dir, small_hall, name, decided):
+    """block_keep is the reference's entry test at each ray's bound, OR'd
+    over the group: no dropped block is one a ray needs there, and each
+    kept block is. cull_order puts each run's kept blocks first and the
+    others after, each in the order's order, and counts the kept."""
+    soup, bounds = _cull_soup(assets_dir, small_hall, name)
+    o, d, t_max, decide = _cull_batch(22, 700, bounds, decided)
+    given = decide if decided else None
+    need = _need_at_bound(o, d, t_max, decide if decided else torch.zeros_like(decide),
+                          soup.block_aabb)
+    groups = -(-o.shape[0] // port_isect.SWEEP_RAYS)
+    pad = groups * port_isect.SWEEP_RAYS - o.shape[0]
+    want = torch.cat([need, need.new_zeros((pad, need.shape[1]))]).view(
+        groups, port_isect.SWEEP_RAYS, -1).any(dim=1)
+    keep = port_isect.block_keep(o, d, t_max, given, soup.block_aabb)
+    assert torch.equal(keep, want)
+    full = port_isect.block_order(o, d, t_max, soup.block_aabb)
+    nb = soup.block_aabb.shape[0]
+    for slices in (1, 3, 8):
+        order, counts = port_isect.cull_order(full, keep, slices)
+        for g in range(groups):
+            for s, (f, e) in enumerate(port_isect.slice_bounds(nb, slices)):
+                run = full[g, f:e].tolist()
+                kept = [b for b in run if keep[g, b]]
+                assert order[g, f:e].tolist() == kept + [b for b in run if not keep[g, b]]
+                assert int(counts[g, s]) == len(kept)
+
+
+def test_cull_with_no_bounds_and_no_rays(assets_dir):
+    """t_max and t_decide absent: every ray live at +inf; an empty batch
+    gives empty tables."""
+    soup, bounds = _soup(assets_dir, "vault")
+    o, d, t_max, _ = _batch(23, 100, bounds, decided=False)
+    none = port_isect.block_keep(o, d, None, None, soup.block_aabb)
+    assert torch.equal(none, port_isect.block_keep(o, d, t_max, torch.zeros(100),
+                                                   soup.block_aabb))
+    order, slices, counts = port_isect.sweep_schedule(o[:0], d[:0], None, None, soup)
+    assert order.shape == (0, 32) and counts.shape == (0, slices)
+
+
+def _need_twin(o, d, bt, box):
+    """PyTorch twin of box_need in csrc/closest_hit.cu: fminf and fmaxf
+    (torch.fmin, torch.fmax) over the three slabs, |d| < 1e-30 by the
+    origin's side."""
+    inv = 1.0 / d
+    tn = tf = None
+    for a in range(3):
+        lo, hi, oa = box[..., a], box[..., 3 + a], o[..., a]
+        near = (lo - oa) * inv[..., a]
+        far = (hi - oa) * inv[..., a]
+        tna, tfa = torch.fmin(near, far), torch.fmax(near, far)
+        zero = d[..., a].abs() < 1e-30
+        inside = (oa >= lo) & (oa <= hi)
+        inf = torch.full_like(tna, float("inf"))
+        tna = torch.where(zero, torch.where(inside, -inf, inf), tna)
+        tfa = torch.where(zero, torch.where(inside, inf, -inf), tfa)
+        tn = tna if tn is None else torch.fmax(tn, tna)
+        tf = tfa if tf is None else torch.fmin(tf, tfa)
+    return (tf >= torch.fmax(tn, torch.tensor(EPSILON))) & (tn <= bt)
+
+
+def _superblock_never_rejects(o, d, bt, aabb):
+    """Every (ray, block) that the block test accepts, the test of the
+    block's superblock (super_aabb) accepts; returns the share of (ray,
+    superblock) pairs it rejects."""
+    sup = torch.from_numpy(port_isect.super_aabb(aabb.numpy()))
+    per = min(aabb.shape[0], port_isect.SUPER_BLOCKS)
+    fine = _need_twin(o[:, None], d[:, None], bt[:, None], aabb[None])
+    coarse = _need_twin(o[:, None], d[:, None], bt[:, None], sup[None])
+    owner = torch.arange(aabb.shape[0]) // per
+    assert not bool((fine & ~coarse[:, owner]).any())
+    return float((~coarse).float().mean())
+
+
+_COORD = st.one_of(
+    st.floats(min_value=-50.0, max_value=50.0, width=32),
+    st.sampled_from([0.0, -0.0, 1e-30, 3e-31, -1e-40, 1e30, -1e30, 1e38, 5.0, -5.0]),
+)
+_DIR = st.one_of(
+    st.floats(min_value=-1.0, max_value=1.0, width=32),
+    st.sampled_from([0.0, -0.0, 1e-30, -1e-30, 9.99e-31, 1e-29, 1e-40, 1.0, -1.0]),
+)
+
+
+@settings(max_examples=200, deadline=None)
+@given(
+    boxes=st.lists(st.tuples(*[_COORD] * 6), min_size=1, max_size=40),
+    rays=st.lists(
+        st.tuples(st.tuples(*[_COORD] * 3), st.tuples(*[_DIR] * 3),
+                  st.one_of(st.just(float("inf")),
+                            st.floats(min_value=0.0, max_value=100.0, width=32)),
+                  st.integers(-1, 5)),
+        min_size=1, max_size=24),
+)
+def test_superblock_test_never_rejects_an_accepted_block(boxes, rays):
+    """For random and adversarial boxes (degenerate, the empty blocks' far
+    point, overflowing slabs) and rays (axis-parallel, tiny and denormal
+    components, origins on a box's faces, bounds at +inf and at a box's
+    entry), a superblock's box passes every ray that one of its blocks
+    passes."""
+    nb = 1 << (len(boxes) - 1).bit_length()
+    aabb = torch.zeros((max(nb, 1), 8))
+    for i in range(aabb.shape[0]):
+        lo_hi = torch.tensor(boxes[i % len(boxes)], dtype=torch.float32).view(2, 3)
+        aabb[i, 0:3], aabb[i, 3:6] = lo_hi.min(0).values, lo_hi.max(0).values
+    o = torch.tensor([r[0] for r in rays], dtype=torch.float32)
+    d = torch.tensor([r[1] for r in rays], dtype=torch.float32)
+    bt = torch.tensor([r[2] for r in rays], dtype=torch.float32)
+    # origins on a face of a box, bounds at a box's entry
+    face = torch.tensor([r[3] for r in rays])
+    for j, f in enumerate(face.tolist()):
+        if f >= 0:
+            b = aabb[f % aabb.shape[0]]
+            o[j, f % 3] = b[(f % 3) + 3 * (f % 2)]
+            tn, _ = port_isect._slab(o[j], d[j], 1.0 / d[j], b)
+            if torch.isfinite(tn) and tn > 0:
+                bt[j] = tn
+    _superblock_never_rejects(o, d, bt, aabb)
+
+
+def test_superblock_test_on_the_hall_and_its_edges(small_hall):
+    """The small hall's table (its empty blocks' far points included)
+    against 20,000 rays from inside it, every 4th along an axis or with a
+    component of 1e-30 or below, a tenth aimed at the far point, bounds
+    +inf, finite and at a block's entry: no accepted block is rejected by
+    its superblock, and most (ray, superblock) pairs are rejected."""
+    soup, bounds = small_hall
+    rng = np.random.default_rng(31)
+    n = 20_000
+    lo, hi = bounds
+    o = torch.from_numpy((lo + (hi - lo) * rng.random((n, 3))).astype(np.float32))
+    d = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    pick = torch.from_numpy(rng.integers(0, 3, n))
+    tiny = torch.tensor([0.0, -0.0, 1e-30, 9.99e-31, 1e-40])
+    tiny = tiny[torch.from_numpy(rng.integers(0, 5, n))]
+    odd = torch.arange(n) % 4 == 0
+    d[odd, pick[odd]] = tiny[odd]
+    far = torch.arange(n) % 10 == 3
+    d[far] = torch.nn.functional.normalize(1e30 - o[far], dim=1)
+    bt = torch.from_numpy(np.select([rng.random(n) < 0.4, rng.random(n) < 0.5],
+                                    [np.inf, rng.uniform(0.1, 60, n)], 0.0).astype(np.float32))
+    aabb = soup.block_aabb
+    entry, _ = port_isect._slab(o, d, 1.0 / d, aabb[torch.from_numpy(rng.integers(0, 158, n))])
+    at_entry = (torch.arange(n) % 10 == 7) & torch.isfinite(entry) & (entry > 0)
+    bt = torch.where(at_entry, entry, bt)
+    assert _superblock_never_rejects(o, d, bt, aabb) > 0.5

@@ -1,6 +1,6 @@
 """The port's tools on the CPU: kernel_parity's float64 oracle and gates,
 convolve against scripts/convolve.py, health and probe through their
-functions, and every new entry point's default device.
+functions, every new entry point's default device, and biquad_ab's usage.
 
 kernel_parity's gates are held at the script's own 2,048 rows on the
 vault: its p99 gate reads the 99th percentile of ~1,370 rows that both hit
@@ -203,3 +203,13 @@ def test_entry_point_default_device_is_cuda(module, argv, tmp_path, capsys):
     assert module.main([a.format(tmp=tmp_path) for a in argv]) == 1
     assert "torch.cuda.is_available() is False" in capsys.readouterr().err
     assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("argv", [[], ["a", "b"]])
+def test_biquad_ab_usage(argv, capsys):
+    """biquad_ab takes one argument, the other checkout's root: anything
+    else prints its usage and exits 2 before it needs a card."""
+    from rayverb_tpu_torch import biquad_ab
+
+    assert biquad_ab.main(argv) == 2
+    assert "usage: biquad_ab PARENT" in capsys.readouterr().err

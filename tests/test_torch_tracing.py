@@ -328,18 +328,19 @@ def test_plain_pair_sums_split_at_row_ranges(vault, kinds):
     t_max, t_decide = port_isect._bounds(300, None, None, "cpu")
     # a tenth of the rows dead (t_max 0): they count no pair and no live row
     t_max = torch.where(torch.arange(300) % 10 == 3, 0.0, t_max)
-    order, slices = port_isect.sweep_schedule(o, d, t_max, soup.block_aabb)
-    acc = torch.zeros(8, dtype=torch.int64)
+    order, slices, counts = port_isect.sweep_schedule(o, d, t_max, None, soup)
+    acc = torch.zeros(profiling.PAIR_SUMS, dtype=torch.int64)
     t, i, executed = port_isect.closest_hit_plain(
         o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices,
-        with_stats=True, pair_sums=acc, kinds=kinds)
-    want = torch.zeros(8, dtype=torch.int64)
+        counts=counts, with_stats=True, pair_sums=acc, kinds=kinds)
+    want = torch.zeros(profiling.PAIR_SUMS, dtype=torch.int64)
     for kind, start, end in kinds:
         want[kind] += executed[start:end].sum()
         want[profiling.LIVE_ROWS + kind] += (t_max[start:end] > 0).sum()
     assert torch.equal(acc, want) and int(acc[:4].sum()) > 0 and int(acc[4:].sum()) > 0
     t2, i2 = port_isect.closest_hit_plain(
-        o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices)
+        o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices,
+        counts=counts)
     assert torch.equal(t, t2) and torch.equal(i, i2)
 
 
@@ -355,7 +356,7 @@ def test_kind_ranges_of_the_kernel():
 
 
 def test_trace_hands_the_accumulator_to_the_sweep_only_with_stats(vault, monkeypatch):
-    """The trace's sweeps get the call's (8,) accumulator with stats and
+    """The trace's sweeps get the call's (PAIR_SUMS,) accumulator with stats and
     None (the kernel's null pointer) without; the direct path's never."""
     seen = []
     real = port_isect.closest_hit
@@ -368,7 +369,7 @@ def test_trace_hands_the_accumulator_to_the_sweep_only_with_stats(vault, monkeyp
     _render(vault, stats=True)
     accs = [p for p, _ in seen]
     assert accs[0] is None and seen[0][1] == ()
-    assert all(p is accs[1] for p in accs[1:]) and accs[1].shape == (8,)
+    assert all(p is accs[1] for p in accs[1:]) and accs[1].shape == (profiling.PAIR_SUMS,)
     seen.clear()
     monkeypatch.setattr(profiling, "_first_pending", False)
     _render(vault)

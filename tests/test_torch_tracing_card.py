@@ -1,8 +1,8 @@
 """On the card: the sweep kernel's executed pair tests and live rows
-(t_max > 0) by row kind, added by its epilogue into the (8,) accumulator in
-the same launch, equal the plain version's on the same schedule, at one
-slice and at the schedule's own (and the per-row counts and the Hit stay
-the plain version's). This file imports no JAX; on the card run
+(t_max > 0) by row kind, added by its epilogue into the accumulator
+(profiling.pair_sums) in the same launch, equal the plain version's on the
+same culled schedule, at one slice and at the schedule's own (and the
+per-row counts and the Hit stay the plain version's). This file imports no JAX; on the card run
 
     python -m pytest --noconftest -m card tests/test_torch_tracing_card.py
 
@@ -15,6 +15,7 @@ import torch
 
 from rayverb_tpu_torch.ops import intersect, intersect_cuda
 from rayverb_tpu_torch.scene import load_scene
+from rayverb_tpu_torch.utils.profiling import PAIR_SUMS
 
 ASSETS = pathlib.Path(__file__).resolve().parent.parent / "assets"
 
@@ -46,29 +47,31 @@ def test_kernel_pair_sums_equal_plain(card, kinds, slices, decided):
     t_max = torch.where(torch.rand(m, generator=g, device=card) < 0.1, 0.0,
                         torch.rand(m, generator=g, device=card) * 20)
     t_decide = t_max * 0.5 if decided else None
-    order, auto = intersect.sweep_schedule(o, d, t_max, soup.block_aabb, decided)
+    auto = intersect.sweep_slices(m, soup.block_aabb.shape[0], decided)
     slices = auto if slices is None else slices
+    order, counts = intersect_cuda.block_order_cuda(
+        o, d, t_max, soup.block_aabb, soup.super_aabb, slices, t_decide=t_decide)
     t_dec = t_decide if decided else torch.zeros_like(t_max)
-    acc_plain = torch.zeros(8, dtype=torch.int64, device=card)
+    acc_plain = torch.zeros(PAIR_SUMS, dtype=torch.int64, device=card)
     pt, pi, p_ex = intersect.closest_hit_plain(
-        o, d, soup.packed, soup.block_aabb, t_max, t_dec, order, slices,
+        o, d, soup.packed, soup.block_aabb, t_max, t_dec, order, slices, counts=counts,
         with_stats=True, pair_sums=acc_plain, kinds=kinds)
-    acc = torch.zeros(8, dtype=torch.int64, device=card)
+    acc = torch.zeros(PAIR_SUMS, dtype=torch.int64, device=card)
     hit, k_ex = intersect_cuda.closest_hit_cuda(
-        o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices,
+        o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices, counts=counts,
         with_stats=True, pair_sums=acc, kinds=kinds)
     assert torch.equal(acc, acc_plain) and int(acc[:4].sum()) > 0
     live = torch.zeros(4, dtype=torch.int64, device=card)
     for kind, start, end in kinds:
         live[kind] += (t_max[start:end] > 0).sum()
-    assert torch.equal(acc[4:], live)
+    assert torch.equal(acc[4:8], live) and int(acc[8:].abs().sum()) == 0
     assert torch.equal(k_ex, p_ex)
     want = intersect.hit_from_raw(pt, pi)
     assert all(torch.equal(a, b) for a, b in zip(hit, want))
     # the accumulator alone (no per-row counts) adds the same sums again
     launches = intersect_cuda.launches
     hit2 = intersect_cuda.closest_hit_cuda(
-        o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices,
+        o, d, soup.packed, soup.block_aabb, t_max, t_decide, order, slices, counts=counts,
         pair_sums=acc, kinds=kinds)
     assert intersect_cuda.launches == launches + 1
     assert torch.equal(acc, 2 * acc_plain)
