@@ -1,10 +1,10 @@
 """The demo corpus through the port: every (config, model, material)
 combination of the reference's demo/gen.sh (the table of scripts/gen.py),
-rendered in one process through rayverb_tpu_torch.cli.
+rendered in one process through rayverb_tpu_torch.cli's render_files.
 
     python -m rayverb_tpu_torch.gen --outdir DIR [--ext wav] [--limit N]
         [--only MODEL] [--pipeline fused|modular] [--seed S] [--dry-run]
-        [--check-against REFDIR] [--device cuda|cpu]
+        [--check-against REFDIR] [--device cuda|cpu] [--stats]
 
 Writes DIR/<model>/<model>_<config>_<material>.<ext> and DIR/report.json.
 Render k of the full COMBOS list gets ``--seed S + k`` whatever --only and
@@ -15,7 +15,11 @@ REFDIR/<model>/<model>_<config>_<material>.<ext> by corpus_check, its
 readings go into the report, and any failed check makes the exit code 1,
 as any failed render does. Each render's record has its seed, wall,
 channels and samples, and "cold" for the first render of the run, "warm"
-for the others. DIR may not be the repository's impulses/,
+for the others; with --stats also its flat timings (load: config and
+scene, render, write, and the render's own, trace_bin and finalize for the
+fused render) under "timings", and its sweep-table and filter-parameter
+cache counters (sweep_table.hits, .builds, filter_params.hits, .uploads,
+.builds) under "counters". DIR may not be the repository's impulses/,
 the JAX package's checked-in corpus.
 """
 
@@ -249,15 +253,23 @@ def walls_by_model(renders) -> dict:
                 "max_s": max(w)} for m, w in walls.items()}
 
 
+# the cache counters a --stats record keeps (utils/profiling.py)
+CACHE_COUNTERS = ("sweep_table.hits", "sweep_table.builds", "filter_params.hits",
+                  "filter_params.uploads", "filter_params.builds")
+
+
 def render(todo, outdir, *, ext="wav", pipeline="fused", seed=0, device="cuda",
-           check_against=None, log=print):
+           check_against=None, stats=False, log=print):
     """Render the (k, combo) pairs of ``todo`` into ``outdir`` through the
-    port's CLI in this process; with ``check_against`` hold each against
-    its file there. Returns the report (scripts/gen.py's keys and the
+    port's CLI render (cli.render_files) in this process; with
+    ``check_against`` hold each against its file there. With ``stats``
+    each record gains its flat ``timings`` (load, render, write and the
+    render's own, e.g. trace_bin and finalize) and its cache ``counters``
+    (CACHE_COUNTERS). Returns the report (scripts/gen.py's keys and the
     per-render records)."""
     from . import cli
     from .corpus_check import compare_files, worst
-    from .io.audio import AudioFormatError, read_audio
+    from .io.audio import AudioFormatError
 
     records = []
     t_start = time.time()
@@ -270,20 +282,32 @@ def render(todo, outdir, *, ext="wav", pipeline="fused", seed=0, device="cuda",
                "run": "cold" if i == 0 else "warm"}
         stderr = io.StringIO()
         t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stderr(stderr):
-                rc = cli.main([*combo_paths(combo), out, "--pipeline", pipeline,
-                               "--seed", str(seed + k), "--device", device])
-        except SystemExit as e:  # argparse rejects the arguments
-            rc = e.code if isinstance(e.code, int) else 1
+        # the CLI's checks and error texts (cli.main), kept in the record
+        paths = combo_paths(combo)
+        with contextlib.redirect_stderr(stderr):
+            error, _ = cli.precheck(*paths, out)
+            try:
+                if error is None:
+                    channels, info = cli.render_files(*paths, out, pipeline=pipeline,
+                                                      seed=seed + k, device=device,
+                                                      stats=stats)
+            except (ValueError, RuntimeError, OSError) as e:
+                error = f"encountered runtime error:\n{e}"
+            if error is not None:
+                print(error, file=sys.stderr)
+            rc = 0 if error is None else 1
         rec["wall_s"] = time.perf_counter() - t0
         rec["rc"] = rc
         if rc != 0:
             rec["error"] = stderr.getvalue().strip()
             log(f"  FAILED (rc={rc}): {rec['error']}")
         else:
-            data, _, _ = read_audio(out)
-            rec["channels"], rec["samples"] = int(data.shape[0]), int(data.shape[1])
+            rec["channels"], rec["samples"] = int(channels.shape[0]), int(channels.shape[1])
+            if stats:
+                timings = info["timings"]
+                rec["timings"] = {k: v for k, v in timings.items()
+                                  if isinstance(v, float) and k != "total"}
+                rec["counters"] = {k: timings["counters"].get(k, 0) for k in CACHE_COUNTERS}
             if check_against is not None:
                 try:
                     rec["check"] = compare_files(
@@ -332,6 +356,9 @@ def main(argv=None) -> int:
                         help="hold each render against REFDIR's file of the "
                              "same name (corpus_check)")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    parser.add_argument("--stats", action="store_true",
+                        help="keep each render's flat timings and cache counters "
+                             "in its record")
     args = parser.parse_args(argv)
     if os.path.realpath(args.outdir) == os.path.realpath(CORPUS):
         parser.error(f"--outdir may not be {CORPUS}: it holds the JAX "
@@ -353,7 +380,7 @@ def main(argv=None) -> int:
         return 0
     report = render(todo, args.outdir, ext=args.ext, pipeline=args.pipeline,
                     seed=args.seed, device=args.device,
-                    check_against=args.check_against,
+                    check_against=args.check_against, stats=args.stats,
                     log=lambda s: print(s, flush=True))
     os.makedirs(args.outdir, exist_ok=True)
     with open(os.path.join(args.outdir, "report.json"), "w") as fh:

@@ -637,6 +637,28 @@ def _device_filter_params(filter_type, sample_rate, lo_cutoff, length, device,
     return torch.from_numpy(params).to(device), flips, nfft, method
 
 
+def device_filter_params(filter_type, sample_rate, lo_cutoff, length, device, method):
+    """_device_filter_params in the span rv.filter_params, counted as
+    filter_params.hits (the device cache served), filter_params.uploads
+    (the host cache served, and the parameters were uploaded) or
+    filter_params.builds (computed on the host)."""
+    with profiling.span("rv.filter_params"):
+        if not profiling.counting():
+            return _device_filter_params(filter_type, sample_rate, lo_cutoff, length,
+                                         device, method)
+        on_device = _device_filter_params.cache_info().hits
+        on_host = _finalize_filter_params_cached.cache_info().hits
+        out = _device_filter_params(filter_type, sample_rate, lo_cutoff, length, device,
+                                    method)
+        if _device_filter_params.cache_info().hits > on_device:
+            profiling.count("filter_params.hits")
+        elif _finalize_filter_params_cached.cache_info().hits > on_host:
+            profiling.count("filter_params.uploads")
+        else:
+            profiling.count("filter_params.builds")
+        return out
+
+
 def histogram_length(scene, nreflections: int, sample_rate: float) -> int:
     """Scene-derived upper bound on the IR length, rounded up to a power of
     two (render.py:1125-1141)."""
@@ -877,8 +899,8 @@ def render_fused(
     The call is the root span rv.render (utils.profiling): rv.prepare
     (_prepare: rv.atten_spec, rv.sweep_table, rv.ray_order), one rv.trace
     per chunk (rv.bounce, rv.closest_hit, rv.bin), rv.time_stats,
-    rv.finalize (rv.dedup), rv.pull, and rv.sync where the host waits for
-    the device.
+    rv.finalize (rv.filter_params, rv.dedup), rv.pull, and rv.sync where
+    the host waits for the device.
     With stats=True the info dict gains ``timings``: the device-
     synchronised phase walls trace_bin, time_stats, finalize, pull and
     total, the call's ``spans`` and ``counters`` (the executed pair tests
@@ -975,7 +997,7 @@ def _finish_render(hist, imgs: _Images, max_t: float, min_t: float,
         profiling.count("finalize.bucket", bucket)
         if bucket < length:
             hist = hist[..., :bucket].contiguous()
-        params, flips, nfft, filter_method = _device_filter_params(
+        params, flips, nfft, filter_method = device_filter_params(
             config.filter, float(config.sample_rate), float(config.hipass), bucket,
             str(dev), _finalize_method(config.filter),
         )

@@ -48,7 +48,6 @@ from ..ops.render import (
     _channel,
     _dedup_rows,
     _dense_from_runs,
-    _device_filter_params,
     _finalize_filter,
     _finalize_method,
     _head,
@@ -59,6 +58,7 @@ from ..ops.render import (
     _sorted_hist,
     _time_bins,
     chain_hashes,
+    device_filter_params,
     executed_pairs,
     memory_budget,
     render_bytes,
@@ -397,10 +397,9 @@ def _render_irs(scene, config, sources, mics, directions, *, hrtf_table, impl, d
         spec, length = prep.spec, prep.length
         per = choose_pairs_per_pass(b, n, nrefl, prep.nblocks, length, spec.nchannels,
                                     microbatch, memory_budget(dev))
-        with profiling.span("rv.filter_params"):
-            params, flips, nfft, filter_method = _device_filter_params(
-                config.filter, float(config.sample_rate), float(config.hipass), length,
-                str(dev), _finalize_method(config.filter))
+        params, flips, nfft, filter_method = device_filter_params(
+            config.filter, float(config.sample_rate), float(config.hipass), length,
+            str(dev), _finalize_method(config.filter))
     t_dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
 
     irs, contents = [], []

@@ -5,10 +5,13 @@ A span (``span``) names a stretch of host time; a counter (``count``) adds
 to a number. Recording is on in two cases:
 
   - inside a call made with ``stats=True`` (``call``, the root of
-    render_fused, render_irs_batched, render_fused_sharded and the modular
-    pipeline's render and render_from_raw): the call's
-    spans are kept in memory (name, start, end, parent, the call's id) and
-    folded at its end into the info's ``timings`` (``Recording.fold``)
+    render_fused, render_irs_batched, render_fused_sharded, the modular
+    pipeline's render and render_from_raw, and the CLI's render_files): the
+    call's spans are kept in memory (name, start, end, parent, the call's
+    id) and folded at its end into the info's ``timings``
+    (``Recording.fold``). A call opened inside a recording call is a span
+    of it: render_files' root rv.cli holds render_fused's rv.render, whose
+    spans, counters and flat keys go into rv.cli's ``timings``
   - while a torch.profiler session records: each span then also enters a
     profiler range of its name (``_Range``), so that it lands in the same
     trace as the device's operations, on the profiler's clock. The range
@@ -42,7 +45,10 @@ taken from the process's cache or built, ops/intersect.py
 modular pipeline's rows entering its population, and the image records
 its host dedup admits and keeps), ``biquad.series_samples`` (the samples
 each biquad pass of a filter bank is given: series x content length, per
-pass, whatever runs it), and
+pass, whatever runs it), ``filter_params.hits``, ``.uploads`` and
+``.builds`` (the finalize's filter parameters served by the device cache,
+by the host cache and uploaded, or computed on the host), ``write.bytes``
+(the bytes of the audio files written), and
 ``launches.<kernel>``, the call's deltas of the module counters that the
 kernel wrappers keep (LAUNCH_COUNTERS). A CUDA graph's replay adds again
 the host counts that its capture added (``host_counts``, ``add_counts``).
@@ -107,6 +113,8 @@ class Recording:
         self.stack: list = []
         self.counters: dict = defaultdict(int)
         self.marks: dict = {}
+        self.roots: list = [0]  # the span of each call open, innermost last
+        self.flat: dict = {}    # the flat keys of the calls nested in this one
         self.launches0 = _launch_counts()
         self.pairs = None   # (PAIR_SUMS,) int64 on dev
         self.staged = None  # its host copy
@@ -125,16 +133,23 @@ class Recording:
         else:
             self.stack.remove(i)
 
-    def table(self) -> dict:
-        """{name: {"n", "s", "self_s"}} of the closed spans; a span's self
-        time is its time less the part its child spans cover."""
+    def table(self, root: int | None = None) -> dict:
+        """{name: {"n", "s", "self_s"}} of the closed spans (with ``root``,
+        of that span and those under it); a span's self time is its time
+        less the part its child spans cover."""
+        keep = None
+        if root is not None:
+            keep = {root}
+            for j in range(root + 1, len(self.spans)):
+                if self.spans[j][3] in keep:
+                    keep.add(j)
         child = [0.0] * len(self.spans)
         for name, t0, t1, parent, _ in self.spans:
             if t1 is not None and parent >= 0:
                 child[parent] += t1 - t0
         out: dict = {}
-        for (name, t0, t1, _, _), c in zip(self.spans, child):
-            if t1 is None:
+        for j, ((name, t0, t1, _, _), c) in enumerate(zip(self.spans, child)):
+            if t1 is None or (keep is not None and j not in keep):
                 continue
             row = out.setdefault(name, {"n": 0, "s": 0.0, "self_s": 0.0})
             row["n"] += 1
@@ -156,16 +171,18 @@ class Recording:
             out["order.entries"] = int(sums[ORDER_ENTRIES + 1])
         return out
 
-    def fold(self, flat: dict) -> dict:
-        """The info's ``timings``: the flat keys (the marks; each key of
-        ``flat`` the seconds of the span it names, or the sum over a tuple
-        of names, where one of them ran; ``total`` the root's), ``spans``,
-        ``counters``, ``call`` (id and start on the host's perf_counter
-        clock) and ``once`` (the process-wide store)."""
-        table = self.table()
-        root = self.spans[0]
+    def fold(self, flat: dict, root: int = 0) -> dict:
+        """The info's ``timings`` of the call whose root is span ``root``:
+        the flat keys (the marks; each key of ``flat``, and of the calls
+        nested in this one, the seconds of the span it names, or the sum
+        over a tuple of names, where one of them ran; ``total`` the root's),
+        ``spans`` (the root's and those under it), ``counters``, ``call``
+        (id and start on the host's perf_counter clock) and ``once`` (the
+        process-wide store)."""
+        table = self.table(root or None)
+        root = self.spans[root]
         out = dict(self.marks)
-        for key, names in flat.items():
+        for key, names in {**self.flat, **flat}.items():
             names = (names,) if isinstance(names, str) else names
             if any(name in table for name in names):
                 out[key] = sum(table[name]["s"] for name in names if name in table)
@@ -298,11 +315,12 @@ def add_counts(delta: dict):
 
 def mark(key: str):
     """In a ``stats`` call: synchronise its device and keep the seconds
-    since its root began as the flat timing ``key``."""
+    since the root of the innermost call began as the flat timing
+    ``key``."""
     rec = _current
     if rec is not None and rec.stats:
         _sync(rec.dev)
-        rec.marks[key] = time.perf_counter() - rec.spans[0][1]
+        rec.marks[key] = time.perf_counter() - rec.spans[rec.roots[-1]][1]
 
 
 def pair_sums():
@@ -344,10 +362,26 @@ def call(name: str, dev, /, *, stats: bool = False, timings: dict | None = None,
     """The root span ``name`` of one call on ``dev``. With ``stats`` the
     call records, and at its end its Recording.fold(flat) goes into
     ``timings``. The process's first call records too, and its root ends
-    with one device synchronisation. Without ``stats``, a call inside a
-    recording call is a span of it."""
+    with one device synchronisation. A call inside a recording call is a
+    span of it and opens no Recording of its own; inside a ``stats`` call
+    its flat keys join the outer call's, and with ``stats`` the fold of
+    its own span and those under it goes into ``timings``. A ``stats``
+    call inside a call that records without stats (the process's first)
+    records on its own."""
     global _current, _first, _first_pending
     outer = _current
+    if outer is not None and (outer.stats or not stats):
+        with span(name, **attrs) as sp:
+            outer.roots.append(sp.ids[0])
+            try:
+                yield
+            finally:
+                outer.roots.pop()
+        if outer.stats:
+            outer.flat.update(flat or {})
+            if stats and timings is not None:
+                timings.update(outer.fold(flat or {}, root=sp.ids[0]))
+        return
     first = _first_pending and outer is None
     if not (stats or first):
         with span(name, **attrs):
