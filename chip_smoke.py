@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each printed as one JSON line with its wall time:
 
   1. device   nvidia-smi's name and power limit, the CUDA device name, and
-              the nvcc builds of the closest-hit and biquad kernels, one
-              nvcc per source, started together (with their seconds and
-              ptxas' registers)
+              the nvcc builds of the closest-hit, biquad and sort-key
+              kernels, one nvcc per source, started together (with their
+              seconds and ptxas' registers)
   2. kernel   the CUDA kernel against its plain PyTorch version on the
               vault scene, on the card: 50,000 Morton-sorted primary rays,
               the first bounce's reversed shadow rows, a ragged batch of 777
@@ -137,9 +137,21 @@ Phases, each printed as one JSON line with its wall time:
  18. parity   kernel_parity: the sweep kernel against the float64
               Moller-Trumbore oracle on the card, 2,048 rows of mixed kinds
               on the vault and on the hall, scripts/kernel_parity.py's gates
- 19. kernels  one JSON line per the port's kernel table (the sweep, the
+ 19. keys     the sort-key kernels (ray_bounce_key, ray_shadow_key)
+              against their plain versions, bit for bit, on the inputs
+              every eager bounce of a vault render and of a config-5 batch
+              keys (50,000 rows; the 64-pair key at 64 x 4,096) and on
+              1,048,576 rows over twice the vault's grid; device ms per
+              launch beside the plain keys' call ms and the byte bounds.
+              Every path (main, hrtf, north star, modular, datagen,
+              sharded, mesh, corpus) counts its sort-key launches from 0
+              before each run; the CLI's vault runs must key every row by
+              the kernels (--stats: no sort_keys.plain), and they and the
+              datagen batches launch them at least once a reflection
+ 20. kernels  one JSON line per the port's kernel table (the sweep, the
               block order, the sweep's epilogue with no launch of its own
-              beside the card's launch floor, and the biquad scan); the
+              beside the card's launch floor, the biquad scan and the
+              sort keys); the
               device line also carries the
               instruction counts of the sweep kernel's loops, read from
               `cuobjdump -sass` where the toolkit has it
@@ -651,7 +663,7 @@ def _phase_main(ph, tmp, paths=VAULT, extra=()):
     from rayverb_tpu_torch import cli
     from rayverb_tpu_torch.config.schema import load_config
     from rayverb_tpu_torch.io.audio import read_audio
-    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
+    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda, ray_keys_cuda
     from rayverb_tpu_torch.ops.filters import _band_coeffs
     from rayverb_tpu_torch.ops.trace import sweep_count
 
@@ -678,19 +690,23 @@ def _phase_main(ph, tmp, paths=VAULT, extra=()):
             intersect_cuda.launches = 0
             intersect_cuda.order_launches = 0
             biquad_cuda.launches = 0
+            ray_keys_cuda.launches = 0
             t0 = time.perf_counter()
             rc = cli.main([*paths, out, "--stats", "--device", "cuda", *extra])
             wall = time.perf_counter() - t0
             launches = intersect_cuda.launches
             order_launches = intersect_cuda.order_launches
             biquad_launches = biquad_cuda.launches
+            ray_keys_launches = ray_keys_cuda.launches
         sys.stderr.write(stderr.getvalue())
         if rc != 0:
             raise AssertionError(f"{label} CLI run exited {rc}")
         data, sr, bits = read_audio(out)
         peak = float(np.abs(data).max()) if data.size else 0.0
+        sort_keys = _sort_key_rows(stderr.getvalue())
         run = {"run": label, "wall_s": wall, "launches": launches,
                "order_launches": order_launches, "biquad_launches": biquad_launches,
+               "ray_keys_launches": ray_keys_launches, "sort_keys": sort_keys,
                "biquad_shapes": shapes,
                "stats": stderr.getvalue().strip().splitlines(),
                "channels": int(data.shape[0]), "samples": int(data.shape[1]),
@@ -711,6 +727,14 @@ def _phase_main(ph, tmp, paths=VAULT, extra=()):
             raise AssertionError(
                 f"{label} run launched the biquad kernel {biquad_launches} times, "
                 f"expected {expected_biquad}"
+            )
+        # every bounce keys its shadow rows, so a trace launches the sort-key
+        # kernels at least once a reflection, and keys no row the plain way
+        if (ray_keys_launches < cfg.reflections or sort_keys["plain"] != 0
+                or sort_keys["fused"] == 0):
+            raise AssertionError(
+                f"{label} run keyed its rows outside the sort-key kernels: "
+                f"{ray_keys_launches} launches, rows {sort_keys}"
             )
     ph.out["runs"] = runs
     ph.out["expected_sweeps"] = expected
@@ -1022,6 +1046,19 @@ def _phase_hall(ph, dev, scene):
     return rec
 
 
+def _sort_key_rows(stats):
+    """{'fused': n, 'plain': n}: the sort_keys.* counters of --stats' text
+    (0 where a counter is absent)."""
+    rows = {"fused": 0, "plain": 0}
+    for ln in stats.splitlines():
+        if ln.startswith("counters: "):
+            for kv in ln[len("counters: "):].split():
+                k, v = kv.split("=")
+                if k.startswith("sort_keys."):
+                    rows[k[len("sort_keys."):]] += int(v)
+    return rows
+
+
 def _phase_north_star(ph, dev, scene, hall_loads):
     """The north star, cold and warm, then a one-pass against a chunked
     render of a smaller population; the hall's load times (``hall_loads``:
@@ -1032,7 +1069,7 @@ def _phase_north_star(ph, dev, scene, hall_loads):
 
     from rayverb_tpu_torch.config.schema import parse_config
     from rayverb_tpu_torch.device import card_name_and_power
-    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
+    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda, ray_keys_cuda
     from rayverb_tpu_torch.ops.intersect import CLOSEST_SLICES, soup_from_scene
     from rayverb_tpu_torch.ops.order_check import order_keys
     from rayverb_tpu_torch.ops.render import render_fused
@@ -1048,6 +1085,7 @@ def _phase_north_star(ph, dev, scene, hall_loads):
         intersect_cuda.launches = 0
         intersect_cuda.order_launches = 0
         biquad_cuda.launches = 0
+        ray_keys_cuda.launches = 0
         t0 = time.perf_counter()
         ir, info = render_fused(scene, cfg, dirs, device=dev, stats=True)
         wall = time.perf_counter() - t0
@@ -1068,6 +1106,7 @@ def _phase_north_star(ph, dev, scene, hall_loads):
             "launches": intersect_cuda.launches,
             "order_launches": intersect_cuda.order_launches,
             "biquad_launches": biquad_launches,
+            "ray_keys_launches": ray_keys_cuda.launches,
             "filter_method": info["filter_method"],
             "shape": list(ir.shape),
         }
@@ -1075,7 +1114,7 @@ def _phase_north_star(ph, dev, scene, hall_loads):
         _emit({"north_star_run": run})
         if ir.shape[0] != 2 or not np.all(np.isfinite(ir)) or np.abs(ir).max() == 0:
             raise AssertionError(f"north-star IR is not stereo, finite and non-silent: {run}")
-        if run["launches"] == 0 or run["order_launches"] == 0:
+        if run["launches"] == 0 or run["order_launches"] == 0 or run["ray_keys_launches"] == 0:
             raise AssertionError(f"north star ran no kernel: {run}")
         # its finalize is the fft bank: the biquad kernel has no launch
         if run["filter_method"] != "fft" or run["biquad_launches"] != 0:
@@ -1778,7 +1817,7 @@ def _datagen_run(label, scene, cfg, sources, mics, dirs, dev, **kw):
     memory of the call."""
     import torch
 
-    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
+    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda, ray_keys_cuda
     from rayverb_tpu_torch.parallel.datagen import render_irs_batched
 
     torch.cuda.synchronize()
@@ -1786,17 +1825,18 @@ def _datagen_run(label, scene, cfg, sources, mics, dirs, dev, **kw):
     intersect_cuda.launches = 0
     intersect_cuda.order_launches = 0
     biquad_cuda.launches = 0
+    ray_keys_cuda.launches = 0
     t0 = time.perf_counter()
     irs, contents, info = render_irs_batched(scene, cfg, sources, mics, dirs, device=dev,
                                              stats=True, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = (intersect_cuda.launches, intersect_cuda.order_launches,
-                biquad_cuda.launches)
+                biquad_cuda.launches, ray_keys_cuda.launches)
     run = {"run": label, "wall_s": wall, "pairs_per_s": len(sources) / wall,
            "ray_bounces_per_s": dirs.shape[0] * dirs.shape[1] * cfg.reflections / wall,
            "launches": launches[0], "order_launches": launches[1],
-           "biquad_launches": launches[2],
+           "biquad_launches": launches[2], "ray_keys_launches": launches[3],
            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
            "shape": list(irs.shape), **info}
     return irs, contents, run
@@ -1988,6 +2028,9 @@ def _phase_datagen(ph, dev):
                 or run["sweeps"] != run["launches"] or run["biquad_launches"] != 0):
             raise AssertionError(f"config 5 did not run {expected} sweeps per pass through "
                                  f"the order and sweep kernels: {run}")
+        if run["ray_keys_launches"] < cfg.reflections * run["passes"]:
+            raise AssertionError(f"config 5 did not key its shadow rows by the sort-key "
+                                 f"kernels: {run}")
     prof = device_breakdown(
         lambda: render_irs_batched(scene, cfg, sources, mics, dirs, device=dev))
     ph.out.update(pairs=DATAGEN_PAIRS, rays=cfg.rays, reflections=cfg.reflections,
@@ -2133,19 +2176,21 @@ def _counted(fn):
     after, device-synchronised; returns (result, record)."""
     import torch
 
-    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
+    from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda, ray_keys_cuda
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     intersect_cuda.launches = 0
     intersect_cuda.order_launches = 0
     biquad_cuda.launches = 0
+    ray_keys_cuda.launches = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return out, {"wall_s": time.perf_counter() - t0, "launches": intersect_cuda.launches,
                  "order_launches": intersect_cuda.order_launches,
                  "biquad_launches": biquad_cuda.launches,
+                 "ray_keys_launches": ray_keys_cuda.launches,
                  "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
 
@@ -2325,6 +2370,119 @@ def _phase_kernel_parity(ph, dev, hall_scene):
         raise AssertionError(f"the sweep kernel failed a float64 gate: {recs}")
 
 
+# bytes a row of the sort-key kernels read and write: the bounce key reads
+# pos and dir (24 B) and writes an int32; the shadow key reads d (12 B) and
+# alive (1 B) and writes an int32
+BOUNCE_KEY_BYTES = 28
+SHADOW_KEY_BYTES = 17
+
+
+def _key_mismatch(got, want):
+    """Rows where two keys differ (all of them where dtype or shape does)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return int(got.numel())
+    return int((got != want).sum())
+
+
+def _phase_ray_keys(ph, dev):
+    """The sort-key kernels (csrc/ray_keys.cu) against their plain versions
+    (trace._signed32 of _ray_sort_key; _shadow_key's plain path), bit for
+    bit: on the inputs of every eager bounce of a vault render (50,000 rows)
+    and of a config-5 batch (the 64-pair key, 64 x 4,096 rows), recorded as
+    the trace keys them, and on 1,048,576 rows over twice the vault's grid
+    (the north star's batch). Each kernel's device ms per launch
+    (torch.profiler) beside its plain version's call ms and its byte bound.
+    Returns the record."""
+    import torch
+
+    from rayverb_tpu_torch.config.schema import load_config, parse_config
+    from rayverb_tpu_torch.ops import ray_keys_cuda, trace
+    from rayverb_tpu_torch.ops.render import render_fused
+    from rayverb_tpu_torch.parallel.datagen import render_irs_batched
+    from rayverb_tpu_torch.scene import load_scene
+    from rayverb_tpu_torch.utils.directions import random_directions
+
+    seen = {"bounce": [], "shadow": []}
+    real = {"bounce": trace._bounce_key, "shadow": trace._shadow_key}
+
+    def recorder(kind):
+        def key(*args):
+            # a captured bounce's tensors hold its values only at a replay
+            if not torch.cuda.is_current_stream_capturing():
+                seen[kind].append([None if x is None else x.clone() for x in args[:-1]])
+            return real[kind](*args)
+        return key
+
+    scene = load_scene(VAULT[1], VAULT[2])
+    cfg = load_config(VAULT[0])
+    dcfg = parse_config(json.dumps(DATAGEN))
+    sources, mics, ddirs = _datagen_inputs(scene, DATAGEN_PAIRS, dcfg.rays)
+    with mock.patch.object(trace, "_bounce_key", recorder("bounce")), \
+            mock.patch.object(trace, "_shadow_key", recorder("shadow")):
+        render_fused(scene, cfg, random_directions(cfg.rays, seed=cfg.seed), device=dev)
+        render_irs_batched(scene, dcfg, sources, mics, ddirs, device=dev)
+
+    def plain_bounce(*args):
+        return trace._signed32(trace._ray_sort_key(*args))
+
+    def plain_shadow(*args):
+        return real["shadow"](*args, "plain")
+
+    cases = {"vault_bounce": [], "vault_shadow": [], "datagen_bounce": [],
+             "datagen_shadow": []}
+    for args in seen["bounce"]:
+        kind = "vault_bounce" if args[0].shape[0] == cfg.rays else "datagen_bounce"
+        cases[kind].append((ray_keys_cuda.bounce_key_cuda, plain_bounce, args))
+    for args in seen["shadow"]:
+        kind = "vault_shadow" if args[2] is None else "datagen_shadow"
+        cases[kind].append((ray_keys_cuda.shadow_key_cuda, plain_shadow, args))
+    if not all(cases.values()):
+        raise AssertionError(f"a case recorded no sort-key call: "
+                             f"{ {k: len(v) for k, v in cases.items()} }")
+    # the north star's batch: positions over twice the vault's grid (some
+    # on its corners), directions uniform (the axes among them), 1/8 dead
+    n = 1 << 20
+    gen = torch.Generator(device=dev).manual_seed(26)
+    lo, inv_span = cases["vault_bounce"][0][2][2:]
+    span = 1.0 / inv_span
+    pos = (torch.rand((n, 3), generator=gen, device=dev) * 2.0 - 0.5) * span + lo
+    pos[0], pos[1] = lo, lo + span
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen, device=dev), dim=-1)
+    d[:6] = torch.cat([torch.eye(3, device=dev), -torch.eye(3, device=dev)])
+    alive = torch.rand(n, generator=gen, device=dev) < 0.875
+    cases["1M_bounce"] = [(ray_keys_cuda.bounce_key_cuda, plain_bounce, (pos, d, lo, inv_span))]
+    cases["1M_shadow"] = [(ray_keys_cuda.shadow_key_cuda, plain_shadow, (d, alive, None))]
+
+    rec = {"calls": {k: len(v) for k, v in cases.items()},
+           "rows": {k: v[0][2][0].shape[0] if v else 0 for k, v in cases.items()},
+           "mismatched_rows": {}}
+    for k, calls in cases.items():
+        rec["mismatched_rows"][k] = sum(_key_mismatch(fn(*args), want(*args))
+                                        for fn, want, args in calls)
+    ph.out.update(rec)
+    if any(rec["mismatched_rows"].values()):
+        raise AssertionError(f"the sort-key kernels differ from their plain versions: "
+                             f"{rec['mismatched_rows']}")
+
+    def timed(bounce, shadow):
+        n = bounce[0].shape[0]
+        ms = _profiled_many([(lambda: ray_keys_cuda.bounce_key_cuda(*bounce), "ray_bounce_key"),
+                             (lambda: ray_keys_cuda.shadow_key_cuda(*shadow), "ray_shadow_key")],
+                            20)
+        return {"rows": n,
+                "bounce_ms": ms["ray_bounce_key"],
+                "bounce_plain_ms": _cuda_ms(lambda: plain_bounce(*bounce), 5),
+                "bounce_bound_ms": BOUNCE_KEY_BYTES * n / HBM_BYTES_PER_S * 1e3,
+                "shadow_ms": ms["ray_shadow_key"],
+                "shadow_plain_ms": _cuda_ms(lambda: plain_shadow(*shadow), 5),
+                "shadow_bound_ms": SHADOW_KEY_BYTES * n / HBM_BYTES_PER_S * 1e3}
+
+    rec["vault"] = timed(cases["vault_bounce"][0][2], cases["vault_shadow"][0][2])
+    rec["1M"] = timed(cases["1M_bounce"][0][2], cases["1M_shadow"][0][2])
+    ph.out.update(vault=rec["vault"], north_star_rows=rec["1M"])
+    return rec
+
+
 def main() -> int:
     threading.Thread(target=_watchdog, daemon=True).start()
     import torch
@@ -2355,12 +2513,13 @@ def main() -> int:
             from concurrent.futures import ThreadPoolExecutor
 
             from rayverb_tpu_torch import cuda_build
-            from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda
+            from rayverb_tpu_torch.ops import biquad_cuda, intersect_cuda, ray_keys_cuda
 
             # one nvcc per source, all started together
             t0 = time.perf_counter()
-            with ThreadPoolExecutor(2) as pool:
-                for f in [pool.submit(intersect_cuda.build), pool.submit(biquad_cuda.build)]:
+            builds = (intersect_cuda.build, biquad_cuda.build, ray_keys_cuda.build)
+            with ThreadPoolExecutor(len(builds)) as pool:
+                for f in [pool.submit(b) for b in builds]:
                     f.result()
             ph.out["build_s"] = time.perf_counter() - t0
             ph.out["build_s_each"] = {k: v["seconds"] for k, v in cuda_build.build_info.items()}
@@ -2414,6 +2573,8 @@ def main() -> int:
             corpus_run = _phase_corpus(ph, tmp)
         with Phase("kernel_parity") as ph:
             _phase_kernel_parity(ph, dev, hall_scene)
+        with Phase("ray_keys_vs_plain") as ph:
+            keys = _phase_ray_keys(ph, dev)
         del north_ir
     except Exception:
         traceback.print_exc()
@@ -2528,6 +2689,31 @@ def main() -> int:
         "ms_per_pass_524288": biquad["ms_per_pass"],
         "bounds_524288": biquad["bounds"],
         "full_length_max_err_over_peak": biquad["full_length"]["max_err_over_peak"],
+    }, {
+        "name": "ray_keys",
+        "route": "cuda",
+        "source": "rayverb_tpu_torch/csrc/ray_keys.cu",
+        # no Pallas counterpart: the JAX trace's sort keys, fused by XLA
+        "replaces": "rayverb_tpu/ops/trace.py:110",
+        "launches": hrtf_runs[-1]["ray_keys_launches"],
+        "launches_by_path": {k: r["ray_keys_launches"] for k, r in paths.items()},
+        # keys that differ from the plain version's, in every case (0)
+        "max_abs_err": float(sum(keys["mismatched_rows"].values())),
+        # the bounce key at the vault's 50,000 rows: device time per launch
+        # (torch.profiler); plain_ms the plain key's call under CUDA events;
+        # bound_ms its bytes at the HBM's bandwidth; the shadow key beside it
+        "ms": keys["vault"]["bounce_ms"],
+        "plain_ms": keys["vault"]["bounce_plain_ms"],
+        "bound_ms": keys["vault"]["bounce_bound_ms"],
+        "bound_by": "bytes",
+        # no PyTorch call computes a Morton key
+        "library_ms": None,
+        "shadow_ms": keys["vault"]["shadow_ms"],
+        "shadow_plain_ms": keys["vault"]["shadow_plain_ms"],
+        "shadow_bound_ms": keys["vault"]["shadow_bound_ms"],
+        "rows_1M": keys["1M"],
+        "cases": {k: {"calls": keys["calls"][k], "rows": keys["rows"][k]}
+                  for k in keys["calls"]},
     }]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {

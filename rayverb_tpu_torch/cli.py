@@ -19,7 +19,8 @@ scene load, render and write walls are printed, then the phase walls (the modula
 pipeline's: trace, population, post and process), then the render's span
 table (calls, total and self seconds by ``rv.*`` span, utils/profiling.py)
 and its counters: closest-hit calls and rows, kernel launches, the
-executed pair tests and the live rows by sweep kind, and the fused
+executed pair tests and the live rows by sweep kind, the rows of the
+trace's sort keys by how they were computed, and the fused
 render's histogram bound and finalize bucket or the modular pipeline's
 population, dedup and biquad counters. Errors: message to stderr, exit
 code 1.

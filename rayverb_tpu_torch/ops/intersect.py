@@ -750,6 +750,13 @@ def _bounds(m, t_max, t_decide, device):
     )
 
 
+def runs_cuda(x: torch.Tensor, impl: str) -> bool:
+    """Whether ``impl`` sends the work on ``x`` to the CUDA kernels: 'cuda',
+    or 'auto' on CUDA tensors; 'plain', or 'auto' on the CPU, runs the plain
+    PyTorch version. closest_hit and the trace's sort keys dispatch by it."""
+    return impl == "cuda" or (impl == "auto" and x.is_cuda)
+
+
 def closest_hit(
     origins,
     dirs,
@@ -805,7 +812,7 @@ def closest_hit(
             order, slices, counts = sweep_schedule(
                 origins, dirs, t_max, t_decide, soup, pair_sums
             )
-        if impl == "cuda" or (impl == "auto" and origins.is_cuda):
+        if runs_cuda(origins, impl):
             from .intersect_cuda import closest_hit_cuda
 
             with profiling.span("rv.sweep"):

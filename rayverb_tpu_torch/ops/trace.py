@@ -19,7 +19,10 @@ Differences in form from the JAX trace, none in results:
     pass the exact ``seg_front`` admission gate (a dynamic-size gather),
     where the JAX trace keeps full-width rows and parks the rest dead; the
     rows left out could only ever produce ``img_ok = False``
-  - uint32 sort keys and hashes are computed in int64 masked to 32 bits
+  - uint32 hashes are computed in int64 masked to 32 bits; the plain sort
+    keys too (``_ray_sort_key``, ``_dir_morton``), which the trace sorts as
+    int32 with the top bit flipped (``_signed32``; the same order); on the
+    card each key is one launch of a CUDA kernel (ray_keys_cuda)
   - a multi-pair trace (``pair_id``, the batched datagen's) traces exactly
     B x N rows: the sweep takes any row count, so there is no padding of
     the rows to 512 (JAX datagen.py ``_ROW_ALIGN``) and no ``nvalid``; and
@@ -51,6 +54,7 @@ from .intersect import (
     TriangleSoup,
     closest_hit,
     intersect_triangle,
+    runs_cuda,
     soup_from_scene,
 )
 
@@ -128,6 +132,47 @@ def _ray_sort_key(pos, direction, lo, inv_span):
     return ((_spread16(m >> 11) << 1) | _spread16(dm >> 11)) & _U32
 
 
+def _signed32(key):
+    """(N,) int32 of an (N,) int64 holding a uint32, in the same order: the
+    key with its top bit flipped, read as signed (key - 2**31)."""
+    return (key - 0x80000000).to(torch.int32)
+
+
+def _bounce_key(pos, direction, lo, inv_span, impl: str):
+    """(N,) int32: the mix6 key of _ray_sort_key, sorted as _signed32 of
+    it. One kernel launch of ray_keys_cuda where runs_cuda says so, as for
+    closest_hit; the counters sort_keys.fused and sort_keys.plain count the
+    rows keyed each way."""
+    n = pos.shape[0]
+    if runs_cuda(pos, impl):
+        from .ray_keys_cuda import bounce_key_cuda
+
+        profiling.count("sort_keys.fused", n)
+        return bounce_key_cuda(pos, direction, lo, inv_span)
+    profiling.count("sort_keys.plain", n)
+    return _signed32(_ray_sort_key(pos, direction, lo, inv_span))
+
+
+def _shadow_key(d, alive, pair, impl: str):
+    """The shadow rows' sort key: the direction key of the alive rows,
+    0xFFFFFFFF on the dead ones (so they sort last), as _signed32 (N,)
+    int32; with pair ids (N,) int64 (pair, key) in one int64, the dead rows
+    under pair 0x7FFFFFFF. Dispatched and counted as _bounce_key."""
+    n = d.shape[0]
+    if runs_cuda(d, impl):
+        from .ray_keys_cuda import shadow_key_cuda
+
+        profiling.count("sort_keys.fused", n)
+        return shadow_key_cuda(d, alive, pair)
+    profiling.count("sort_keys.plain", n)
+    key = torch.where(alive, _dir_morton(d), _U32)
+    if pair is None:
+        return _signed32(key)
+    # (pair, key) in one int64: pairs below 2**31, keys below 2**32
+    dead = torch.where(alive, pair, 0x7FFFFFFF)
+    return (dead << 32) | key
+
+
 class TraceOutputs(NamedTuple):
     """Dense per-ray trace results (rayverb_tpu/ops/trace.py:162-172)."""
 
@@ -193,7 +238,7 @@ def _zhat(device) -> torch.Tensor:
     return torch.tensor([0.0, 0.0, 1.0], device=device)
 
 
-def _shadow_rows(mic, intersection, alive, mag, pair=None):
+def _shadow_rows(mic, intersection, alive, mag, pair=None, impl="auto"):
     """Reversed, direction-sorted mic-shadow sweep rows (trace.py:258-283):
     origin at the mic, direction toward the bounce point. Returns (origins,
     dirs, bounds, decide, inv_perm, mag_eff); gather the sweep's Hit through
@@ -202,14 +247,9 @@ def _shadow_rows(mic, intersection, alive, mag, pair=None):
     mic: (3,) or per-row (N, 3). pair (N,) int64 (multi-pair traces): the
     alive rows sort pair-major, then by direction, and the dead rows go
     last (JAX ``lexsort((key, dead))``), so a 32-ray group of the order
-    kernel shares one mic origin."""
+    kernel shares one mic origin. impl: the key's, as _shadow_key."""
     d = _safe_normalize(intersection - mic)
-    key = torch.where(alive, _dir_morton(d), _U32)
-    if pair is not None:
-        # (pair, key) in one int64: pairs below 2**31, keys below 2**32
-        dead = torch.where(alive, pair, 0x7FFFFFFF)
-        key = (dead << 32) | key
-    perm = torch.argsort(key, stable=True)
+    perm = torch.argsort(_shadow_key(d, alive, pair, impl), stable=True)
     inv_perm = _inv_permutation(perm)
     mag_eff = mag * (1.0 - 4e-6) - EPSILON
     al1 = alive[:, None]
@@ -390,7 +430,8 @@ def _trace_impl(
     rv.graph_capture; the image gate's compaction, where the host waits
     for the device, is the span rv.sync (site 'image_gate'). The counters
     bounces.graph and bounces.eager count the call's bounces by how they
-    ran."""
+    ran, sort_keys.fused and sort_keys.plain the rows of its sort keys by
+    how they were computed (_bounce_key, _shadow_key: by ``impl``)."""
     dev = soup.device
     mic = _f32(mic, dev)
     source = _f32(source, dev)
@@ -428,7 +469,7 @@ def _trace_impl(
         kinds = ((_BOUNCE, 0, n),)
         if not (resort and do_sort):
             return sweep(o, dirv, b, kinds=kinds)
-        key = _ray_sort_key(pos, dirv, lo_b, inv_span)
+        key = _bounce_key(pos, dirv, lo_b, inv_span, impl)
         return _sorted_bounce_sweep(sweep, key, o, dirv, b, kinds)
 
     def diffuse_impulse(state, hit, vis, t_safe):
@@ -470,7 +511,7 @@ def _trace_impl(
         alive2 = state.alive & bounce.hit
         mag = torch.linalg.norm(mic_rows - intersection, dim=-1)
         sh_origin, sh_d, sh_bound, sh_decide, sh_inv, sh_mag_eff = _shadow_rows(
-            mic_rows, intersection, alive2, mag, pair_id
+            mic_rows, intersection, alive2, mag, pair_id, impl
         )
         shadow = sweep(sh_origin, sh_d, sh_bound, sh_decide, kinds=((_SHADOW, 0, n),))
         vis = _visible_from_hit(_gather_hit(shadow, sh_inv), sh_mag_eff)
@@ -562,7 +603,7 @@ def _trace_impl(
             mag_image_s = torch.linalg.norm(to_mic_image_s, dim=-1)
 
             sh_origin, sh_d, sh_bound, sh_decide, sh_inv, sh_mag_eff = _shadow_rows(
-                mic_rows, intersection, alive_new, mag_diffuse, pair_id
+                mic_rows, intersection, alive_new, mag_diffuse, pair_id, impl
             )
             # one sweep: shadow rows, then segments, then image visibility;
             # only the validation segments need the exact closest hit

@@ -38,6 +38,9 @@ to the host once, before the call's own final pull: ``stage``), ``hist.len``
 and ``finalize.bucket`` (render_fused's static histogram bound and the
 samples its finalize ran on), ``bounces.graph`` and ``bounces.eager``
 (the trace's bounces, by replay of phase B's CUDA graph or eagerly),
+``sort_keys.fused`` and ``sort_keys.plain`` (the rows whose bounce or
+shadow sort key the trace computed by the CUDA kernels of ray_keys_cuda, or
+by the plain PyTorch functions),
 ``sweep_table.hits`` and ``sweep_table.builds`` (the scene's sweep table
 taken from the process's cache or built, ops/intersect.py
 ``cached_soup``; the modular pipeline's Raytracer builds one every call),
@@ -84,6 +87,7 @@ LAUNCH_COUNTERS = {
     "launches.closest_hit_sweep": ("rayverb_tpu_torch.ops.intersect_cuda", "launches"),
     "launches.closest_hit_order": ("rayverb_tpu_torch.ops.intersect_cuda", "order_launches"),
     "launches.biquad_scan": ("rayverb_tpu_torch.ops.biquad_cuda", "launches"),
+    "launches.ray_keys": ("rayverb_tpu_torch.ops.ray_keys_cuda", "launches"),
 }
 
 

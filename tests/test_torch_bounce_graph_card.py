@@ -36,7 +36,7 @@ DATAGEN = {
     "trim_tail": False,
 }
 CASES = ("vault", "vault_hrtf", "stonehenge", "datagen")
-COUNTERS = ("closest_hit.", "pair_tests.", "live_rows.", "order.", "launches.")
+COUNTERS = ("closest_hit.", "pair_tests.", "live_rows.", "order.", "launches.", "sort_keys.")
 
 
 @pytest.fixture
@@ -145,4 +145,5 @@ def test_graph_counts_what_eager_counts(card, monkeypatch, name):
     assert want["bounces.graph"] == 0 and want["bounces.eager"] == reflections
     names = [k for k in want if k.startswith(COUNTERS)]
     assert "launches.closest_hit_sweep" in names and "pair_tests.shadow" in names
+    assert "launches.ray_keys" in names and "sort_keys.fused" in names
     assert {k: got[k] for k in names} == {k: want[k] for k in names}

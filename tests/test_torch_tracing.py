@@ -39,7 +39,8 @@ DATAGEN_SPANS = {"rv.datagen", "rv.prepare", "rv.atten_spec", "rv.sweep_table", 
                  "rv.filter_params", "rv.inputs", "rv.trace", "rv.bounce", "rv.closest_hit",
                  "rv.block_order", "rv.sweep", "rv.bin", "rv.dedup", "rv.finalize", "rv.sync"}
 COUNTERS = {"closest_hit.calls", "closest_hit.rows", "launches.closest_hit_sweep",
-            "launches.closest_hit_order", "launches.biquad_scan",
+            "launches.closest_hit_order", "launches.biquad_scan", "launches.ray_keys",
+            "sort_keys.plain",
             *(f"pair_tests.{k}" for k in port_trace.SWEEP_KINDS),
             *(f"live_rows.{k}" for k in port_trace.SWEEP_KINDS)}
 NREFL = 4
@@ -249,6 +250,8 @@ def test_render_fused_spans_and_counters(vault, bin_mode):
     assert counters["closest_hit.rows"] >= 96 * (2 * NREFL)
     assert all(counters[f"pair_tests.{k}"] > 0 for k in port_trace.SWEEP_KINDS)
     assert counters["launches.closest_hit_sweep"] == 0  # the CPU runs the plain sweep
+    # the shadow key of every bounce, by the plain path (96 rays: no resort)
+    assert counters["sort_keys.plain"] == 96 * NREFL and counters["launches.ray_keys"] == 0
     assert info["pair_tests_executed"] == {
         k: counters[f"pair_tests.{k}"] for k in port_trace.SWEEP_KINDS}
     assert 0 < info["pair_tests_executed_total"] <= info["pair_tests_issued"]
@@ -268,6 +271,7 @@ def test_render_irs_batched_spans_and_counters(vault):
     assert t["total"] == spans["rv.datagen"]["s"]
     assert spans["rv.closest_hit"]["n"] == port_trace.sweep_count(NREFL)
     assert info["pair_tests_executed"]["bounce"] == counters["pair_tests.bounce"] > 0
+    assert counters["sort_keys.plain"] == 2 * 64 * NREFL
 
 
 @pytest.mark.parametrize("entry", ["render_fused", "render_irs_batched"])
