@@ -898,9 +898,9 @@ def render_fused(
 
     The call is the root span rv.render (utils.profiling): rv.prepare
     (_prepare: rv.atten_spec, rv.sweep_table, rv.ray_order), one rv.trace
-    per chunk (rv.bounce, rv.closest_hit, rv.bin), rv.time_stats,
-    rv.finalize (rv.filter_params, rv.dedup), rv.pull, and rv.sync where
-    the host waits for the device.
+    per chunk (rv.phase_a, rv.phase_b: rv.bounce, rv.closest_hit, rv.bin),
+    rv.time_stats, rv.finalize (rv.filter_params, rv.dedup), rv.pull, and
+    rv.sync where the host waits for the device.
     With stats=True the info dict gains ``timings``: the device-
     synchronised phase walls trace_bin, time_stats, finalize, pull and
     total, the call's ``spans`` and ``counters`` (the executed pair tests

@@ -323,13 +323,14 @@ def render_irs_batched(
     zero. The call is
     the root span rv.datagen (utils.profiling): rv.prepare (rv.atten_spec,
     rv.sweep_table, rv.ray_order, rv.filter_params), then per pass
-    rv.inputs, rv.trace (rv.bounce, rv.closest_hit), rv.bin, rv.dedup and
-    rv.finalize. With stats=True a third value, an info dict: the passes,
-    sweeps, the memory plan, ``timings`` (the device-synchronised phase
-    walls trace, bin, dedup, finalize and total, and the call's ``spans``,
-    ``counters``, ``call`` and ``once``), issued pair tests, and the
-    executed pair tests by sweep kind, counted in the sweeps' own launches
-    and copied to the host in the last pass's finalize.
+    rv.inputs, rv.trace (rv.phase_a, rv.phase_b: rv.bounce, rv.closest_hit),
+    rv.bin, rv.dedup and rv.finalize. With stats=True a third value, an
+    info dict: the passes, sweeps, the memory plan, ``timings`` (the
+    device-synchronised phase walls trace, bin, dedup, finalize and total,
+    and the call's ``spans``, ``counters``, ``call`` and ``once``), issued
+    pair tests, and the executed pair tests by sweep kind, counted in the
+    sweeps' own launches and copied to the host in the last pass's
+    finalize.
 
     impl: the closest-hit implementation ('auto' | 'cuda' | 'plain').
     microbatch: whole pairs per pass, None to plan from the shapes

@@ -22,7 +22,6 @@ of FLAT_TIMINGS.
 from __future__ import annotations
 
 import sys
-from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -68,35 +67,29 @@ def select_results(raytracer: Raytracer, config: RenderConfig) -> RaytracerResul
     return raytracer.get_raw_diffuse()
 
 
-def _phase(timer, name):
-    return nullcontext() if timer is None else timer.phase(name)
-
-
 def _post(config: RenderConfig, results: RaytracerResults, *, hrtf_table,
-          filter_method: str, device, timer, raytracer) -> RenderResult:
+          filter_method: str, device, raytracer) -> RenderResult:
     """Attenuation, predelay, flatten and process of a population."""
-    with _phase(timer, "attenuate"):
-        with profiling.phase("rv.attenuate"):
-            volumes, times = attenuate(results, config.attenuation_model, hrtf_table,
-                                       device=device)
-        predelay = 0.0
-        if config.trim_predelay:
-            with profiling.phase("rv.predelay"):
-                predelay = find_predelay(times)
-                times = fix_predelay(times, predelay)
-    with _phase(timer, "flatten"), profiling.phase("rv.flatten"):
+    with profiling.phase("rv.attenuate"):
+        volumes, times = attenuate(results, config.attenuation_model, hrtf_table,
+                                   device=device)
+    predelay = 0.0
+    if config.trim_predelay:
+        with profiling.phase("rv.predelay"):
+            predelay = find_predelay(times)
+            times = fix_predelay(times, predelay)
+    with profiling.phase("rv.flatten"):
         bands = flatten_channels(volumes, times, config.sample_rate)
-    with _phase(timer, "process"):
-        channels = process(
-            bands,
-            config.sample_rate,
-            filter_type=config.filter,
-            lo_cutoff=config.hipass,
-            do_normalize=config.normalize,
-            volume_scale=config.volume_scale,
-            do_trim_tail=config.trim_tail,
-            filter_method=filter_method,
-        )
+    channels = process(
+        bands,
+        config.sample_rate,
+        filter_type=config.filter,
+        lo_cutoff=config.hipass,
+        do_normalize=config.normalize,
+        volume_scale=config.volume_scale,
+        do_trim_tail=config.trim_tail,
+        filter_method=filter_method,
+    )
     return RenderResult(
         channels=channels,
         sample_rate=config.sample_rate,
@@ -122,20 +115,19 @@ def render_from_raw(
     hrtf_table=None,
     filter_method: str = "scan",
     device=None,
-    timer=None,
     stats: bool = False,
 ) -> RenderResult:
     """Attenuation and post-processing of raw impulses (engine.load_raw) on
     ``device`` (None: the card), without tracing, under the root span
-    rv.modular. ``timer``: a profiling.PhaseTimer, or None. With stats=True
-    the result's info gains ``timings`` (as render's)."""
+    rv.modular. With stats=True the result's info gains ``timings`` (as
+    render's)."""
     if results.num_impulses == 0:
         raise RuntimeError("No raytrace results returned.")
     dev = resolve_device(device)
     timings: dict = {}
     with profiling.call("rv.modular", dev, stats=stats, timings=timings, flat=FLAT_TIMINGS):
         result = _post(config, results, hrtf_table=hrtf_table,
-                       filter_method=filter_method, device=dev, timer=timer, raytracer=None)
+                       filter_method=filter_method, device=dev, raytracer=None)
     return _timed(result, timings, stats)
 
 
@@ -149,21 +141,17 @@ def render(
     trace_impl: str = "auto",
     ray_chunk: int | None = None,
     device=None,
-    timer=None,
     stats: bool = False,
 ) -> RenderResult:
     """Render one impulse response (the body of cmd/main.cpp:241-336) on
     ``device`` (None: the card). trace_impl: the closest-hit sweep, 'auto'
     | 'cuda' | 'plain' (intersect.closest_hit). ray_chunk: rays per trace
-    chunk, None to plan it from memory (trace.trace). ``timer``: a
-    profiling.PhaseTimer whose phases (trace, population, attenuate,
-    flatten, process) then end with a device synchronisation, or None; the
-    spans inside its phases are the timer's. With stats=True the result's
-    info gains ``timings``: the flat stage walls of FLAT_TIMINGS, ``total``,
-    the call's ``spans`` and ``counters`` (the executed pair tests and live
-    rows by sweep kind, sweep_table.builds, population.rows, dedup.images_in
-    and .images_kept, biquad.series_samples, the kernels' launches),
-    ``call`` and ``once``, as render_fused's."""
+    chunk, None to plan it from memory (trace.trace). With stats=True the
+    result's info gains ``timings``: the flat stage walls of FLAT_TIMINGS,
+    ``total``, the call's ``spans`` and ``counters`` (the executed pair
+    tests and live rows by sweep kind, sweep_table.builds, population.rows,
+    dedup.images_in and .images_kept, biquad.series_samples, the kernels'
+    launches), ``call`` and ``once``, as render_fused's."""
     if trace_impl not in ("auto", "cuda", "plain"):
         raise ValueError(f"trace_impl must be 'auto', 'cuda' or 'plain', not {trace_impl!r}")
     for w in config.warnings:
@@ -174,7 +162,7 @@ def render(
 
     timings: dict = {}
     with profiling.call("rv.modular", dev, stats=stats, timings=timings, flat=FLAT_TIMINGS):
-        with _phase(timer, "trace"), profiling.phase("rv.dense_trace"):
+        with profiling.phase("rv.dense_trace"):
             raytracer = Raytracer(
                 config.reflections,
                 scene,
@@ -189,7 +177,7 @@ def render(
 
         # device-resident population: only the small image-index table
         # crosses to the host (for the chain dedup)
-        with _phase(timer, "population"), profiling.phase("rv.population"):
+        with profiling.phase("rv.population"):
             vol, pos, tim = assemble_population(
                 raytracer.outputs, config.output_mode, config.remove_direct
             )
@@ -199,6 +187,5 @@ def render(
             volume=vol, position=pos, time=tim, mic=np.asarray(config.mic_position)
         )
         result = _post(config, results, hrtf_table=hrtf_table,
-                       filter_method=filter_method, device=dev, timer=timer,
-                       raytracer=raytracer)
+                       filter_method=filter_method, device=dev, raytracer=raytracer)
     return _timed(result, timings, stats)

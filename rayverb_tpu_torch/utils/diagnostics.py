@@ -1,6 +1,6 @@
 """Diagnostics: ray-path JSONL dumps (PyTorch counterpart of
-rayverb_tpu/utils/diagnostics.py; the phase timer is utils/profiling.py's
-PhaseTimer).
+rayverb_tpu/utils/diagnostics.py; phase timings are utils/profiling.py's
+spans).
 
 The reference hides its path dump behind a compile-time DIAGNOSTIC flag
 (rayverb.h:19, helpers.cpp:16-60) writing `impulse.dump`: one JSON array

@@ -426,49 +426,6 @@ def report(timings: dict) -> list:
     return lines
 
 
-class PhaseTimer:
-    """Named phases kept apart from any root (the modular pipeline's
-    ``timer`` argument): each phase is the span ``rv.<name>`` of this
-    timer's own ``stats`` Recording, ending with a synchronisation of
-    ``device`` (a CUDA device), and the spans inside a phase land in the
-    same recording, not in the call's."""
-
-    def __init__(self, device=None):
-        self.device = device
-        self.recording = Recording(device, stats=True)
-
-    @contextmanager
-    def phase(self, name: str):
-        global _current
-        outer = _current
-        _current = self.recording
-        try:
-            with phase(f"rv.{name}"):
-                yield
-        finally:
-            _current = outer
-
-    @property
-    def phases(self) -> list:
-        """(name, seconds) of each phase, in order."""
-        return [(s[0][3:], s[2] - s[1]) for s in self.recording.spans
-                if s[3] == -1 and s[2] is not None]
-
-    def timings(self) -> dict:
-        """``spans`` and ``counters`` of the phases so far (the pair tests
-        pulled from the device)."""
-        rec = self.recording
-        if rec.pairs is not None:
-            rec.staged = rec.pairs.cpu()
-        return {"spans": rec.table(), "counters": rec.counts()}
-
-    def report(self) -> str:
-        total = sum(d for _, d in self.phases)
-        lines = [f"{n}: {d:.3f}s" for n, d in self.phases]
-        lines.append(f"total: {total:.3f}s")
-        return "  ".join(lines)
-
-
 def profiler(cuda: bool = True):
     """torch.profiler.profile with CPU activities, and CUDA's with
     ``cuda``."""

@@ -34,7 +34,6 @@ from rayverb_tpu_torch.config.schema import FilterType as PortFilter
 from rayverb_tpu_torch.config.schema import parse_config as port_parse_config
 from rayverb_tpu_torch.ops import biquad_cuda, filters
 from rayverb_tpu_torch.ops import render as port_render
-from rayverb_tpu_torch.utils.profiling import PhaseTimer
 
 torch.set_num_threads(1)
 
@@ -47,6 +46,14 @@ SPEAKERS = {
     ]
 }
 HRTF = {"hrtf": {"facing": [0, 0, 1], "up": [0, 1, 0]}}
+MODULAR_STAGES = ("rv.dense_trace", "rv.population", "rv.attenuate", "rv.predelay",
+                  "rv.flatten", "rv.filter", "rv.mix")
+
+
+def _stages(timings):
+    """The modular pipeline's stage spans of a stats call, in the order they
+    opened."""
+    return [n for n in timings["spans"] if n in MODULAR_STAGES]
 
 
 def _doc(**overrides):
@@ -187,11 +194,12 @@ def test_render_from_raw_matches_jax(scenes, tmp_path):
     je.save_raw(raw, jp.render(jcfg, scenes["large_square"],
                                directions=random_directions(128, seed=3)).raw)
     want = jp.render_from_raw(jcfg, je.load_raw(raw))
-    timer = PhaseTimer()
     got = pp.render_from_raw(port_parse_config(text), pe.load_raw(raw), device="cpu",
-                             timer=timer)
+                             stats=True)
     assert got.raytracer is None and got.channels.shape[0] == 2
-    assert [n for n, _ in timer.phases] == ["attenuate", "flatten", "process"]
+    t = got.info["timings"]
+    assert _stages(t) == ["rv.attenuate", "rv.predelay", "rv.flatten", "rv.filter", "rv.mix"]
+    assert [k for k in pp.FLAT_TIMINGS if k in t] == ["post", "process"]
     _assert_within_60db(got.channels, want.channels)
     np.testing.assert_allclose(got.channels, want.channels[:, : got.channels.shape[-1]],
                                atol=1e-5)
@@ -335,12 +343,13 @@ def test_finalize_method_switch(monkeypatch):
 
 
 def test_pipeline_phases_and_device(scenes):
-    timer = PhaseTimer(device="cpu")
     res = pp.render(port_parse_config(_doc(rays=32)), scenes["large_square"], device="cpu",
-                    timer=timer)
-    assert [n for n, _ in timer.phases] == ["trace", "population", "attenuate", "flatten",
-                                            "process"]
-    assert "total:" in timer.report()
+                    stats=True)
+    t = res.info["timings"]
+    assert _stages(t) == ["rv.dense_trace", "rv.population", "rv.attenuate", "rv.predelay",
+                          "rv.flatten", "rv.filter", "rv.mix"]
+    assert [k for k in pp.FLAT_TIMINGS if k in t] == ["trace", "population", "post", "process"]
+    assert t["total"] >= sum(t[k] for k in pp.FLAT_TIMINGS) > 0
     assert res.raytracer.outputs.diffuse_time.shape == (32, 6)
     assert biquad_cuda.launches == 0  # the CPU never reaches the kernel
     with pytest.raises(ValueError, match="trace_impl"):

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from rayverb_tpu_torch import pipeline
+from portbench.devtrace import DeviceTrace
+from rayverb_tpu_torch import cli, pipeline
 from rayverb_tpu_torch.config.schema import parse_config
 from rayverb_tpu_torch.ops import intersect as port_isect
 from rayverb_tpu_torch.ops import intersect_cuda
@@ -33,11 +34,13 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 METRICS = REPO / "portbench" / "metrics"
 
 RENDER_SPANS = {"rv.render", "rv.prepare", "rv.atten_spec", "rv.sweep_table", "rv.ray_order",
-                "rv.trace", "rv.bounce", "rv.closest_hit", "rv.block_order", "rv.sweep",
-                "rv.bin", "rv.dedup", "rv.time_stats", "rv.finalize", "rv.pull", "rv.sync"}
+                "rv.trace", "rv.phase_a", "rv.phase_b", "rv.bounce", "rv.closest_hit",
+                "rv.block_order", "rv.sweep", "rv.bin", "rv.dedup", "rv.time_stats",
+                "rv.finalize", "rv.pull", "rv.sync"}
 DATAGEN_SPANS = {"rv.datagen", "rv.prepare", "rv.atten_spec", "rv.sweep_table", "rv.ray_order",
-                 "rv.filter_params", "rv.inputs", "rv.trace", "rv.bounce", "rv.closest_hit",
-                 "rv.block_order", "rv.sweep", "rv.bin", "rv.dedup", "rv.finalize", "rv.sync"}
+                 "rv.filter_params", "rv.inputs", "rv.trace", "rv.phase_a", "rv.phase_b",
+                 "rv.bounce", "rv.closest_hit", "rv.block_order", "rv.sweep", "rv.bin",
+                 "rv.dedup", "rv.finalize", "rv.sync"}
 COUNTERS = {"closest_hit.calls", "closest_hit.rows", "launches.closest_hit_sweep",
             "launches.closest_hit_order", "launches.biquad_scan", "launches.ray_keys",
             "sort_keys.plain",
@@ -421,9 +424,14 @@ def test_reader_on_the_program(stem, want):
     assert _reader(stem)(PROGRAM_CTX) == pytest.approx(want)
 
 
+STAGE_READERS = ["pre_idle_ms", "phase_a_idle_ms", "phase_b_idle_ms", "post_idle_ms",
+                 "unnamed_idle_pct"]
+
+
 @pytest.mark.parametrize("stem", ["prepare_ms", "closest_hit_host_us", "pair_tests_per_row",
                                   "first_call_extra_s", "live_row_share",
-                                  "sweep_table_hit_share"])
+                                  "sweep_table_hit_share", "phase_a_ms", "phase_b_ms",
+                                  "graph_capture_ms", *STAGE_READERS])
 @pytest.mark.parametrize("ctx", [PARENT_CTX, {"setup_s": 1.0, "stats": []}],
                          ids=["parent", "untraced"])
 def test_reader_on_the_parent(stem, ctx):
@@ -444,6 +452,195 @@ def test_readers_on_a_real_stats_call(vault):
     assert _reader("prepare_ms")(ctx) > 0
     assert _reader("closest_hit_host_us")(ctx) > 0
     assert _reader("pair_tests_per_row")(ctx) > 0
+    phases = _reader("phase_a_ms")(ctx) + _reader("phase_b_ms")(ctx)
+    assert 0 < _reader("phase_a_ms")(ctx) and phases <= 1e3 * info["timings"]["trace_bin"]
+    # the CPU's trace runs phase B eagerly: no graph is captured
+    assert _reader("graph_capture_ms")(ctx) is None
+
+
+def test_graph_capture_reader_needs_the_stage_span():
+    """graph_capture_ms reads the captures of calls that keep rv.phase_b,
+    summed over a call's chunks; a parent's capture span alone reads
+    nothing."""
+    def call(*spans):
+        return {"spans": {name: {"n": 1, "s": s, "self_s": s} for name, s in spans}}
+
+    read = _reader("graph_capture_ms")
+    ctx = {"stats": [call(("rv.phase_b", 0.05), ("rv.graph_capture", 0.008)),
+                     call(("rv.phase_b", 0.05), ("rv.graph_capture", 0.006)),
+                     call(("rv.phase_b", 0.05))]}
+    assert read(ctx) == pytest.approx(7.0)
+    assert read({"stats": [call(("rv.graph_capture", 0.008))] * 2}) is None
+
+
+# ---------------------------------------------------------------------------
+# the trace's stage spans and the idle gaps by stage
+# ---------------------------------------------------------------------------
+
+STAGE_R = 12  # phase A: 9 image bounces; phase B: 3 diffuse bounces
+
+
+@pytest.fixture
+def recordings(monkeypatch):
+    """The Recordings of the stats calls made in the test, as they fold."""
+    recs = []
+    real = profiling.Recording.fold
+
+    def spy(self, flat, root=0):
+        recs.append(self)
+        return real(self, flat, root)
+
+    monkeypatch.setattr(profiling.Recording, "fold", spy)
+    return recs
+
+
+def _bounces_by_phase(spans):
+    """{phase span index: the rv.bounce spans' phase attributes under it} of
+    a Recording's spans; asserts each phase span sits in an rv.trace."""
+    out = {i: [] for i, s in enumerate(spans) if s[0] in ("rv.phase_a", "rv.phase_b")}
+    for i in out:
+        assert spans[spans[i][3]][0] == "rv.trace"
+    for name, _, _, parent, attrs in spans:
+        if name == "rv.bounce":
+            assert parent in out
+            out[parent].append((spans[parent][0], attrs["phase"]))
+    return out
+
+
+def _assert_phases(spans, traces: int):
+    by_phase = _bounces_by_phase(spans)
+    image = min(STAGE_R, port_trace.NUM_IMAGE_SOURCE - 1)
+    a = [v for i, v in by_phase.items() if spans[i][0] == "rv.phase_a"]
+    b = [v for i, v in by_phase.items() if spans[i][0] == "rv.phase_b"]
+    assert len(a) == len(b) == traces
+    assert all(v == [("rv.phase_a", "image")] * image for v in a)
+    assert all(v == [("rv.phase_b", "diffuse")] * (STAGE_R - image) for v in b)
+
+
+def test_stage_spans_nest_in_a_stats_call(vault, recordings):
+    """In a stats call rv.phase_a and rv.phase_b are children of rv.trace;
+    phase A holds the min(R, 9) image bounces, phase B the rest."""
+    cfg = _cfg(reflections=STAGE_R)
+    _, info = port_render.render_fused(vault, cfg, random_directions(96, seed=5),
+                                       device="cpu", stats=True)
+    (rec,) = recordings
+    _assert_phases(rec.spans, traces=1)
+    spans = info["timings"]["spans"]
+    assert spans["rv.phase_a"]["n"] == spans["rv.phase_b"]["n"] == 1
+    assert spans["rv.phase_a"]["s"] + spans["rv.phase_b"]["s"] <= spans["rv.trace"]["s"]
+
+
+def test_stage_spans_nest_in_a_profiler_session(vault, not_first):
+    """Under torch.profiler with recording off, the two stage ranges lie in
+    rv.trace's, and hold the image and the diffuse bounces' ranges."""
+    cfg = _cfg(reflections=STAGE_R)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        port_render.render_fused(vault, cfg, random_directions(96, seed=5), device="cpu")
+    events = {}
+    for e in prof.events():
+        if e.name.startswith("rv."):
+            events.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    (trace,), (a,), (b,) = events["rv.trace"], events["rv.phase_a"], events["rv.phase_b"]
+    assert trace[0] <= a[0] < a[1] <= b[0] < b[1] <= trace[1]
+
+    def inside(r):
+        return sum(r[0] <= s and e <= r[1] for s, e in events["rv.bounce"])
+
+    image = min(STAGE_R, port_trace.NUM_IMAGE_SOURCE - 1)
+    assert (inside(a), inside(b)) == (image, STAGE_R - image)
+
+
+@pytest.mark.parametrize("entry", ["datagen", "modular", "render_files"])
+def test_every_entry_records_the_stage_spans(vault, entry, recordings, tmp_path):
+    """Datagen (one trace a pass), the modular pipeline's dense trace and
+    render_files' nested render keep both stage spans, nested as in
+    render_fused."""
+    cfg = _cfg(reflections=STAGE_R)
+    if entry == "datagen":
+        src = np.array([[0, 1.75, 0], [0.4, 1.5, 1.0]], np.float32)
+        mic = np.array([[0, 1.75, 6], [0.2, 1.2, 4.0]], np.float32)
+        dirs = np.stack([random_directions(64, seed=s) for s in (6, 7)])
+        _, _, info = port_datagen.render_irs_batched(vault, cfg, src, mic, dirs, device="cpu",
+                                                     stats=True, microbatch=1)
+        traces = 2  # one pass a pair
+    elif entry == "modular":
+        res = pipeline.render(cfg, vault, directions=random_directions(96, seed=5),
+                              device="cpu", stats=True)
+        info, traces = res.info, 1
+    else:
+        doc = {"rays": 96, "reflections": STAGE_R, "sample_rate": 8000, "bit_depth": 16,
+               "source_position": [0, 1.75, 0], "mic_position": [0, 1.75, 6],
+               "attenuation_model": {"speakers": [{"direction": [0, 0, 1], "shape": 0.5}]}}
+        (tmp_path / "cfg.json").write_text(json.dumps(doc))
+        _, info = cli.render_files(str(tmp_path / "cfg.json"),
+                                   str(REPO / "assets" / "test_models" / "vault.obj"),
+                                   str(REPO / "assets" / "materials" / "vault.json"),
+                                   str(tmp_path / "out.wav"), device="cpu", stats=True)
+        traces = 1
+    # the render nested in rv.cli folds into rv.cli's one Recording
+    rec = recordings[-1]
+    assert all(r is rec for r in recordings)
+    _assert_phases(rec.spans, traces=traces)
+    spans = info["timings"]["spans"]
+    assert spans["rv.phase_a"]["n"] == spans["rv.phase_b"]["n"] == traces
+
+
+def _stage_window(units=2):
+    """A profiled window of ``units`` calls with known gaps (us):
+
+        host   rv.render [0, 1000]: rv.prepare [0, 100], rv.trace [100, 800]
+               (rv.phase_a [110, 500] > rv.bin [300, 400]; rv.phase_b
+               [500, 700]; rv.bin [700, 790]), rv.finalize [800, 950]
+        device [20, 40] [60, 300] [380, 600] [640, 660] [760, 900]
+               [960, 980]
+
+    Gaps by middle: [0, 20] and [40, 60] pre; [300, 380] in phase A's
+    rv.bin, phase A; [600, 640] phase B; [660, 760] (middle 710) in the
+    trace's rv.bin after the phases, post; [900, 960] post; [980, 1000],
+    the root's own time, unnamed. A host event after the last span (the
+    profiler's own, at its stop) bounds nothing."""
+    host = [("rv.render", 0, 1000), ("rv.prepare", 0, 100), ("rv.sweep_table", 10, 90),
+            ("rv.trace", 100, 800), ("rv.phase_a", 110, 500), ("rv.bin", 300, 400),
+            ("rv.sync", 310, 390), ("rv.phase_b", 500, 700), ("rv.bin", 700, 790),
+            ("rv.finalize", 800, 950), ("rv.sync", 900, 940), ("aten::mul", 905, 906),
+            ("cudaDeviceSynchronize", 1000, 1040)]
+    dev = [("k", a, b) for a, b in
+           ((20, 40), (60, 300), (380, 600), (640, 660), (760, 900), (960, 980))]
+    return DeviceTrace(dev, [(n, float(a), float(b)) for n, a, b in host], 1000e-6, units)
+
+
+def test_stage_readers_give_each_gap_to_the_outermost_stage():
+    ctx = {"profile": _stage_window(units=2), "stats": []}
+    want = {"pre_idle_ms": 40e-3 / 2, "phase_a_idle_ms": 80e-3 / 2,
+            "phase_b_idle_ms": 40e-3 / 2, "post_idle_ms": (100 + 60) * 1e-3 / 2}
+    for stem, ms in want.items():
+        assert _reader(stem)(ctx) == pytest.approx(ms)
+    assert _reader("unnamed_idle_pct")(ctx) == pytest.approx(100 * 20 / 1000)
+
+
+def test_stage_idles_sum_to_device_idle_pct():
+    """The stage idles times the calls, over the window's wall, plus the
+    unnamed share give device_idle_pct, the edges of the window counted."""
+    for units in (1, 2, 3):
+        ctx = {"profile": _stage_window(units), "stats": []}
+        wall_ms = 1e3 * ctx["profile"].wall_s
+        named = sum(_reader(stem)(ctx) for stem in STAGE_READERS[:4]) * units
+        total = 100 * named / wall_ms + _reader("unnamed_idle_pct")(ctx)
+        assert total == pytest.approx(_reader("device_idle_pct")(ctx))
+        assert total == pytest.approx(34.0)
+
+
+def test_stage_readers_read_nothing_without_device_ops_or_stage_spans():
+    """No device operation (a CPU run), or no phase range (a parent's
+    program): every stage reader reads nothing."""
+    full = _stage_window()
+    no_device = DeviceTrace([], full.host_ops, full.wall_s, full.units)
+    no_phases = DeviceTrace(full.device_ops, [h for h in full.host_ops
+                                              if h[0] not in ("rv.phase_a", "rv.phase_b")],
+                            full.wall_s, full.units)
+    for prof in (no_device, no_phases, None):
+        for stem in STAGE_READERS:
+            assert _reader(stem)({"profile": prof, "stats": []}) is None
 
 
 # ---------------------------------------------------------------------------

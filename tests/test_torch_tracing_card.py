@@ -2,7 +2,9 @@
 (t_max > 0) by row kind, added by its epilogue into the accumulator
 (profiling.pair_sums) in the same launch, equal the plain version's on the
 same culled schedule, at one slice and at the schedule's own (and the
-per-row counts and the Hit stay the plain version's). This file imports no JAX; on the card run
+per-row counts and the Hit stay the plain version's); and a profiled vault
+render's idle gaps, put under the program's stages (portbench/stages.py),
+add up to its idle share. This file imports no JAX; on the card run
 
     python -m pytest --noconftest -m card tests/test_torch_tracing_card.py
 
@@ -13,8 +15,12 @@ import pathlib
 import pytest
 import torch
 
+from portbench import devtrace, stages
+from rayverb_tpu_torch.config.schema import load_config
 from rayverb_tpu_torch.ops import intersect, intersect_cuda
+from rayverb_tpu_torch.ops.render import render_fused
 from rayverb_tpu_torch.scene import load_scene
+from rayverb_tpu_torch.utils.directions import random_directions
 from rayverb_tpu_torch.utils.profiling import PAIR_SUMS
 
 ASSETS = pathlib.Path(__file__).resolve().parent.parent / "assets"
@@ -76,3 +82,22 @@ def test_kernel_pair_sums_equal_plain(card, kinds, slices, decided):
     assert intersect_cuda.launches == launches + 1
     assert torch.equal(acc, 2 * acc_plain)
     assert all(torch.equal(a, b) for a, b in zip(hit2, want))
+
+
+@pytest.mark.card
+def test_stage_idles_add_up_to_the_idle_share(card):
+    """Two warm renders of the vault (vault.json, 50,000 x 128) under
+    torch.profiler: the stages' idle seconds plus the unnamed ones
+    reproduce the window's idle share within 0.5 points, and both phases
+    hold idle time."""
+    config = load_config(str(ASSETS / "configs" / "vault.json"))
+    scene = load_scene(str(ASSETS / "test_models" / "vault.obj"),
+                       str(ASSETS / "materials" / "vault.json"))
+    dirs = [random_directions(config.rays, seed=s) for s in (1, 2, 3)]
+    render_fused(scene, config, dirs[0], device=card)
+    prof = devtrace.profile(lambda: [render_fused(scene, config, d, device=card)
+                                     for d in dirs[1:]], 2, card)
+    sums = stages.idle_by_stage(prof)
+    idle_pct = 100.0 * (1.0 - prof.busy_s / prof.wall_s)
+    assert abs(100.0 * sum(sums.values()) / prof.wall_s - idle_pct) <= 0.5
+    assert sums["phase_a"] > 0 and sums["phase_b"] >= 0
