@@ -46,9 +46,10 @@ Phases, each printed as one JSON line with its wall time:
               a stereo WAV, finite and non-silent, every sweep through the
               kernels; render_fused on it with the kernel and with the plain
               sweep, executed-pair counters on: bit-identical IRs and equal
-              counts per sweep kind; a small HRTF render on the card against
-              the CPU fed the card's trace records (records within the CPU
-              tests' tolerances, IRs within -60 dB)
+              counts per sweep kind (phase A eager for the counts); a
+              small HRTF render on the card against the CPU fed the card's
+              trace records (records within the CPU tests' tolerances, IRs
+              within -60 dB)
   7. hall     the north-star hall (scripts/gen_hall.py, 101,568 triangles,
               1,024 table blocks) generated into the temporary directory
               and loaded through the native OBJ parser (which must build
@@ -138,9 +139,9 @@ Phases, each printed as one JSON line with its wall time:
               Moller-Trumbore oracle on the card, 2,048 rows of mixed kinds
               on the vault and on the hall, scripts/kernel_parity.py's gates
  19. keys     the sort-key kernels (ray_bounce_key, ray_shadow_key)
-              against their plain versions, bit for bit, on the inputs
-              every eager bounce of a vault render and of a config-5 batch
-              keys (50,000 rows; the 64-pair key at 64 x 4,096) and on
+              against their plain versions, bit for bit, on the inputs that
+              every bounce of phase A (run eagerly) of a vault render and
+              of a config-5 batch keys (50,000 rows; the 64-pair key at 64 x 4,096) and on
               1,048,576 rows over twice the vault's grid; device ms per
               launch beside the plain keys' call ms and the byte bounds.
               Every path (main, hrtf, north star, modular, datagen,
@@ -148,7 +149,15 @@ Phases, each printed as one JSON line with its wall time:
               before each run; the CLI's vault runs must key every row by
               the kernels (--stats: no sort_keys.plain), and they and the
               datagen batches launch them at least once a reflection
- 20. kernels  one JSON line per the port's kernel table (the sweep, the
+ 20. image graph  phase A of a trace (the direct path and the 9 image
+              bounces) by replay of its CUDA graph, the capture included,
+              and eagerly, in turns, on the vault at 50,000 to 1,000,000
+              rows and on the hall at 1,000,000: walls, the capture, peak
+              memory, and the rows up to which the replay is cheaper
+              (ops/trace.py IMAGE_GRAPH_ROWS is set from them); then the
+              datagen cell's whole batch both ways; the two ways' image
+              slots and rows, and the batch's IRs, bit for bit
+ 21. kernels  one JSON line per the port's kernel table (the sweep, the
               block order, the sweep's epilogue with no launch of its own
               beside the card's launch floor, the biquad scan and the
               sort keys); the
@@ -830,11 +839,13 @@ def _ir_error(got, want):
 def _phase_hrtf_render(ph, dev):
     """render_fused on the binaural vault with the kernel and with the plain
     sweep, executed-pair counters on: bit-identical IRs, equal counts per
-    sweep kind."""
+    sweep kind (the kernel's counted with phase A eager, as the plain
+    render runs it: phase A's graph pads its sweeps)."""
     import numpy as np
     import torch
 
     from rayverb_tpu_torch.config.schema import load_config
+    from rayverb_tpu_torch.ops import trace
     from rayverb_tpu_torch.ops.render import render_fused
     from rayverb_tpu_torch.scene import load_scene
     from rayverb_tpu_torch.utils.directions import random_directions
@@ -848,19 +859,23 @@ def _phase_hrtf_render(ph, dev):
         t0 = time.perf_counter()
         ir, info = render_fused(scene, cfg, dirs, impl=impl, device=dev, stats=True)
         out[impl] = (ir, time.perf_counter() - t0, info)
+    with mock.patch.object(trace, "_image_graph_engages", lambda *a: False):
+        eager_a, info = render_fused(scene, cfg, dirs, impl="cuda", device=dev, stats=True)
     a, b = out["cuda"][0], out["plain"][0]
-    ea = out["cuda"][2]["pair_tests_executed"]
+    ea = info["pair_tests_executed"]
     eb = out["plain"][2]["pair_tests_executed"]
     ph.out.update({
         "rays": cfg.rays,
         "shape": list(a.shape),
-        "bit_identical": bool(a.shape == b.shape and np.array_equal(a, b)),
+        "bit_identical": bool(a.shape == b.shape and np.array_equal(a, b)
+                              and np.array_equal(eager_a, b)),
         "max_abs_diff": float(np.abs(a.astype(np.float64) - b).max()) if a.shape == b.shape else None,
         "kernel_wall_s": out["cuda"][1],
         "plain_wall_s": out["plain"][1],
         "kernel_timings": out["cuda"][2]["timings"],
         "pair_tests_executed": ea,
         "pair_tests_executed_plain": eb,
+        "pair_tests_executed_graphed": out["cuda"][2]["pair_tests_executed"],
         "pair_tests_issued": out["cuda"][2]["pair_tests_issued"],
     })
     if a.shape[0] != 2 or not (np.all(np.isfinite(a)) and np.abs(a).max() > 0):
@@ -1204,10 +1219,11 @@ def _north_star_k(dev, scene):
                     order_k(order_keys(origins, dirs, t_max, soup.block_aabb)))
         return real(origins, dirs, t_max, t_decide, soup, pair_sums)
 
-    # the recorder reads each sweep's order on the host: the eager loop,
+    # the recorder reads each sweep's order on the host: the eager loops,
     # since a captured bounce cannot wait for the device
     with mock.patch.object(intersect, "sweep_schedule", record), \
-            mock.patch.object(trace, "_graph_engages", lambda *a: False):
+            mock.patch.object(trace, "_graph_engages", lambda *a: False), \
+            mock.patch.object(trace, "_image_graph_engages", lambda *a: False):
         render_fused(scene, cfg, random_directions(cfg.rays, seed=0), device=dev)
     if set(seen) != {"primary", "bounce", "shadow"}:
         raise AssertionError(f"the north star's batches were not all seen: {sorted(seen)}")
@@ -1909,7 +1925,7 @@ class _SweepCapture:
     B-row sweep, 1 the primary sweep) and, under "largest_image", the
     image-phase sweep (odd calls after the primary, while image bounces
     run) with the most rows. Launches pass through unchanged, and the
-    trace runs its eager loop: a replayed bounce makes no call to wrap."""
+    trace runs its eager loops: a replayed bounce makes no call to wrap."""
 
     def __init__(self, calls, image_calls):
         self.calls, self.image_calls = calls, image_calls
@@ -1938,7 +1954,8 @@ class _SweepCapture:
             return real(o, d, packed, aabb, t_max, t_decide, order, slices, **kw)
 
         self._patches = [mock.patch.object(intersect_cuda, "closest_hit_cuda", spy),
-                         mock.patch.object(trace, "_graph_engages", lambda *a: False)]
+                         mock.patch.object(trace, "_graph_engages", lambda *a: False),
+                         mock.patch.object(trace, "_image_graph_engages", lambda *a: False)]
         for p in self._patches:
             p.start()
         return self
@@ -2387,8 +2404,8 @@ def _key_mismatch(got, want):
 def _phase_ray_keys(ph, dev):
     """The sort-key kernels (csrc/ray_keys.cu) against their plain versions
     (trace._signed32 of _ray_sort_key; _shadow_key's plain path), bit for
-    bit: on the inputs of every eager bounce of a vault render (50,000 rows)
-    and of a config-5 batch (the 64-pair key, 64 x 4,096 rows), recorded as
+    bit: on the inputs of every bounce of phase A, run eagerly, of a vault
+    render (50,000 rows) and of a config-5 batch (the 64-pair key, 64 x 4,096 rows), recorded as
     the trace keys them, and on 1,048,576 rows over twice the vault's grid
     (the north star's batch). Each kernel's device ms per launch
     (torch.profiler) beside its plain version's call ms and its byte bound.
@@ -2417,8 +2434,10 @@ def _phase_ray_keys(ph, dev):
     cfg = load_config(VAULT[0])
     dcfg = parse_config(json.dumps(DATAGEN))
     sources, mics, ddirs = _datagen_inputs(scene, DATAGEN_PAIRS, dcfg.rays)
+    # phase A eager, as it runs above IMAGE_GRAPH_ROWS rows
     with mock.patch.object(trace, "_bounce_key", recorder("bounce")), \
-            mock.patch.object(trace, "_shadow_key", recorder("shadow")):
+            mock.patch.object(trace, "_shadow_key", recorder("shadow")), \
+            mock.patch.object(trace, "_image_graph_engages", lambda *a: False):
         render_fused(scene, cfg, random_directions(cfg.rays, seed=cfg.seed), device=dev)
         render_irs_batched(scene, dcfg, sources, mics, ddirs, device=dev)
 
@@ -2480,6 +2499,161 @@ def _phase_ray_keys(ph, dev):
     rec["vault"] = timed(cases["vault_bounce"][0][2], cases["vault_shadow"][0][2])
     rec["1M"] = timed(cases["1M_bounce"][0][2], cases["1M_shadow"][0][2])
     ph.out.update(vault=rec["vault"], north_star_rows=rec["1M"])
+    return rec
+
+
+# rows of phase A's graph against its eager loop (trace.IMAGE_GRAPH_ROWS)
+IMAGE_GRAPH_SIZES = (50_000, 100_000, 196_608, 262_144, 393_216, 524_288, 786_432,
+                     1_000_000)
+IMAGE_GRAPH_REPS = 3
+# whole config-5 batches (render_irs_batched) a way, in turns
+IMAGE_GRAPH_BATCH_REPS = 6
+
+
+def _phase_image_graph_rows(ph, dev, hall_scene):
+    """Phase A of a trace (the direct path and the 9 image bounces, each
+    bounce's diffuse row copied into bounce-major buffers, as the sorted
+    binning does) on the vault at each of IMAGE_GRAPH_SIZES Morton-ordered
+    rows and on the hall at 1,000,000: by replay of its CUDA graph, the
+    capture included, and eagerly (the gate that compacts the rays, which
+    the host waits for), in turns, each wall synced, IMAGE_GRAPH_REPS a
+    way. The capture's ms from a stats call; peak memory each way. Where
+    the replay stops being cheaper sets trace.IMAGE_GRAPH_ROWS. Then the
+    datagen cell's own batch, whole, both ways (_image_graph_batch). The
+    two ways' image slots and rows, and the batch's IRs, must be equal bit
+    for bit. Returns the rows."""
+    import statistics
+
+    import torch
+
+    from rayverb_tpu_torch.config.schema import load_config
+    from rayverb_tpu_torch.constants import NUM_IMAGE_SOURCE
+    from rayverb_tpu_torch.ops import trace
+    from rayverb_tpu_torch.ops.intersect import cached_soup
+    from rayverb_tpu_torch.ops.render import ray_schedule
+    from rayverb_tpu_torch.probe import NORTH_STAR
+    from rayverb_tpu_torch.scene import load_scene
+    from rayverb_tpu_torch.utils import profiling
+    from rayverb_tpu_torch.utils.directions import random_directions
+
+    cfg = load_config(VAULT[0])
+    vault = load_scene(VAULT[1], VAULT[2])
+    cases = [("vault", vault, cfg.mic_position, cfg.source_position, n)
+             for n in IMAGE_GRAPH_SIZES]
+    cases.append(("hall", hall_scene, NORTH_STAR["mic_position"],
+                  NORTH_STAR["source_position"], 1_000_000))
+    nimg = NUM_IMAGE_SOURCE - 1
+    rows = []
+    for name, scene, mic, src, n in cases:
+        soup, _ = cached_soup(scene, dev)
+        dirs = torch.from_numpy(random_directions(n, seed=28)).to(dev)
+        order, resort = ray_schedule(dirs, soup.block_aabb.shape[0])
+        if order is not None:
+            dirs = dirs[order]
+        bufs = (torch.empty((nimg, n, 8), device=dev), torch.empty((nimg, n, 3), device=dev),
+                torch.empty((nimg, n), device=dev))
+
+        def phase_a(graph, stats=False):
+            bounce = iter(range(nimg))
+
+            def consume(row):
+                b = next(bounce)
+                for buf, x in zip(bufs, row):
+                    buf[b] = x
+
+            # the graph wherever asked, whatever the bound
+            with mock.patch.object(trace, "IMAGE_GRAPH_ROWS", n):
+                return trace._trace_impl(
+                    soup, mic, src, dirs, nreflections=nimg, consume_row=consume,
+                    resort=resort, bounce_graph=graph,
+                    stats=profiling.pair_sums() if stats else None)
+
+        def wall(graph):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            phase_a(graph)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        rec = {"scene": name, "rows": n, "resort": resort}
+        got = {}
+        for graph in (False, True):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            images = phase_a(graph)
+            torch.cuda.synchronize()
+            rec[f"{'graph' if graph else 'eager'}_peak_gib"] = (
+                torch.cuda.max_memory_allocated(dev) / 2**30)
+            got[graph] = [x.clone() for x in (*images, *bufs)]
+        rec["equal"] = all(torch.equal(a, b) for a, b in zip(got[False], got[True]))
+        del got
+        timings = {}
+        with profiling.call("rv.image_graph_rows", dev, stats=True, timings=timings):
+            phase_a(True, stats=True)
+            profiling.stage()
+        rec["capture_ms"] = 1e3 * timings["spans"]["rv.graph_capture"]["s"]
+        walls = {False: [], True: []}
+        for graph in (False, True, True, False) * ((IMAGE_GRAPH_REPS + 1) // 2):
+            if len(walls[graph]) < IMAGE_GRAPH_REPS:
+                walls[graph].append(wall(graph))
+        rec["eager_ms"] = statistics.median(walls[False])
+        rec["graph_ms"] = statistics.median(walls[True])
+        rec["eager_walls_ms"], rec["graph_walls_ms"] = walls[False], walls[True]
+        rec["graph_cheaper"] = rec["graph_ms"] < rec["eager_ms"]
+        rows.append(rec)
+        _emit({"image_graph_rows": rec})
+        del bufs, dirs
+    rows.append(_image_graph_batch(dev))
+    _emit({"image_graph_rows": rows[-1]})
+    ph.out["cases"] = rows
+    cheaper = [r["rows"] for r in rows if r["scene"] == "vault" and r["graph_cheaper"]]
+    ph.out["largest_cheaper_vault_rows"] = max(cheaper, default=0)
+    ph.out["IMAGE_GRAPH_ROWS"] = trace.IMAGE_GRAPH_ROWS
+    if not all(r["equal"] for r in rows):
+        raise AssertionError("phase A's graph and its eager loop differ: "
+                             f"{[(r['scene'], r['rows']) for r in rows if not r['equal']]}")
+    return rows
+
+
+def _image_graph_batch(dev):
+    """The datagen cell's own batch (config 5: 64 pairs x 4,096 rays, one
+    262,144-row trace) through render_irs_batched, phase A by its graph
+    and eagerly (trace.IMAGE_GRAPH_ROWS set either side of the rows), in
+    turns, each batch's wall synced, IMAGE_GRAPH_BATCH_REPS a way; the
+    IRs must be equal bit for bit."""
+    import statistics
+
+    import torch
+
+    from rayverb_tpu_torch.config.schema import parse_config
+    from rayverb_tpu_torch.ops import trace
+    from rayverb_tpu_torch.parallel.datagen import render_irs_batched
+    from rayverb_tpu_torch.scene import load_scene
+
+    scene = load_scene(VAULT[1], VAULT[2])
+    cfg = parse_config(json.dumps(DATAGEN))
+    sources, mics, dirs = _datagen_inputs(scene, DATAGEN_PAIRS, cfg.rays)
+    n = DATAGEN_PAIRS * cfg.rays
+
+    def batch(graph):
+        with mock.patch.object(trace, "IMAGE_GRAPH_ROWS", n if graph else n - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            irs, _ = render_irs_batched(scene, cfg, sources, mics, dirs, device=dev)
+            torch.cuda.synchronize()
+            return irs, 1e3 * (time.perf_counter() - t0)
+
+    got = {graph: batch(graph)[0] for graph in (False, True)}
+    rec = {"scene": "datagen_batch", "rows": n,
+           "equal": bool(torch.equal(got[False], got[True]))}
+    del got
+    walls = {False: [], True: []}
+    for graph in (False, True, True, False) * (IMAGE_GRAPH_BATCH_REPS // 2):
+        walls[graph].append(batch(graph)[1])
+    rec["eager_ms"] = statistics.median(walls[False])
+    rec["graph_ms"] = statistics.median(walls[True])
+    rec["eager_walls_ms"], rec["graph_walls_ms"] = walls[False], walls[True]
+    rec["graph_cheaper"] = rec["graph_ms"] < rec["eager_ms"]
     return rec
 
 
@@ -2575,6 +2749,8 @@ def main() -> int:
             _phase_kernel_parity(ph, dev, hall_scene)
         with Phase("ray_keys_vs_plain") as ph:
             keys = _phase_ray_keys(ph, dev)
+        with Phase("image_graph_rows") as ph:
+            _phase_image_graph_rows(ph, dev, hall_scene)
         del north_ir
     except Exception:
         traceback.print_exc()

@@ -123,6 +123,7 @@ def _vault_batches(scene_mod, config_mod, render_mod, intersect_cuda):
     primary, second bounce and first shadow sweeps, cloned."""
     import torch
 
+    from .ops import trace
     from .profile_render import VAULT
     from .utils.directions import random_directions
 
@@ -140,7 +141,9 @@ def _vault_batches(scene_mod, config_mod, render_mod, intersect_cuda):
                                    for x in (o, d, t_max, t_decide))
         return real(o, d, packed, aabb, t_max, t_decide, order, slices, **kw)
 
-    with mock.patch.object(intersect_cuda, "closest_hit_cuda", spy):
+    # phase A eager: a captured bounce's tensors hold no values to keep
+    with mock.patch.object(intersect_cuda, "closest_hit_cuda", spy), \
+            mock.patch.object(trace, "_image_graph_engages", lambda *a: False):
         render_mod.render_fused(scene, cfg, random_directions(cfg.rays, seed=cfg.seed),
                                 device=DEVICE)
     torch.cuda.synchronize()

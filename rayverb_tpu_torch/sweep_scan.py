@@ -80,8 +80,9 @@ def record_sweeps(cell):
 
     intersect_cuda.closest_hit_cuda = recording
     try:
-        # the eager loop: a replayed bounce makes no call to record
-        with mock.patch.object(trace, "_graph_engages", lambda *a: False):
+        # the eager loops: a replayed bounce makes no call to record
+        with mock.patch.object(trace, "_graph_engages", lambda *a: False), \
+                mock.patch.object(trace, "_image_graph_engages", lambda *a: False):
             render_fused(scene, cfg, random_directions(cfg.rays, seed=cfg.seed),
                          device="cuda")
     finally:

@@ -37,7 +37,8 @@ added on the device into the call's accumulator, ``pair_sums``, and copied
 to the host once, before the call's own final pull: ``stage``), ``hist.len``
 and ``finalize.bucket`` (render_fused's static histogram bound and the
 samples its finalize ran on), ``bounces.graph`` and ``bounces.eager``
-(the trace's bounces, by replay of phase B's CUDA graph or eagerly),
+(the trace's bounces, by replay of a CUDA graph of either phase or
+eagerly) and ``bounces.image_graph`` (phase A's replays among them),
 ``sort_keys.fused`` and ``sort_keys.plain`` (the rows whose bounce or
 shadow sort key the trace computed by the CUDA kernels of ray_keys_cuda, or
 by the plain PyTorch functions),

@@ -7,8 +7,9 @@ just inside, positions outside the bounds, axis directions, dead rows), the
 multi-pair shadow key at 64 pairs, and both kernels replayed from a
 captured CUDA graph against eager launches. Then whole traces: the vault
 through ``_trace_impl`` with the kernels against the plain keys (and
-against ``impl="plain"``), rows and counters equal. This file imports no
-JAX; on the card run
+against ``impl="plain"``, its phase A the same fixed-shape bounce run
+without a graph), rows and counters equal. This file imports no JAX; on
+the card run
 
     python -m pytest --noconftest -m card tests/test_torch_ray_keys_card.py
 
@@ -159,6 +160,21 @@ def test_keys_replayed_from_a_graph(card):
         assert torch.equal(outs[0], _plain_bounce(pos, d, lo, inv_span))
 
 
+class _EagerGraph(trace._BounceGraph):
+    """The runner without a graph: nothing is captured, and each step runs
+    the bounce on the static state into fixed row buffers."""
+
+    def _capture(self):
+        pass
+
+    def _replay(self):
+        row = self.chain()
+        if self.row is None:
+            self.row = tuple(torch.empty_like(x) for x in row)
+        for buf, x in zip(self.row, row):
+            buf.copy_(x)
+
+
 @functools.lru_cache(maxsize=None)
 def _vault_soup():
     scene = load_scene(str(ASSETS / "test_models" / "vault.obj"),
@@ -188,6 +204,11 @@ def _trace(monkeypatch, way, pairs=None, rays=4096, reflections=NUM_IMAGE_SOURCE
         if way == "plain_keys":
             # the keys by the plain functions, the sweeps still by the kernels
             m.setattr(trace, "runs_cuda", lambda x, impl: False)
+        if way == "plain":
+            # phase A's fixed-shape bounce, as the kernels' trace runs it,
+            # without a graph
+            m.setattr(trace, "_image_graph_engages", lambda *a: True)
+            m.setattr(trace, "_BounceGraph", _EagerGraph)
         with profiling.call("rv.test", torch.device("cuda"), stats=True, timings=timings):
             stats = profiling.pair_sums()
             images = trace._trace_impl(
@@ -215,10 +236,13 @@ def test_trace_with_the_kernels_equals_plain(card, monkeypatch, way, pairs):
     for x, y in zip(got[1], want[1]):
         assert torch.equal(x, y)
     assert torch.equal(got[2], want[2])  # pair tests, live rows, order entries
-    keyed = 4096 * (pairs or 1) * (2 * reflections - 1)
+    # phase A's bounce keys bounce 0's rows too (and keeps their order):
+    # every bounce keys its bounce and shadow rows
+    keyed = 4096 * (pairs or 1) * 2 * reflections
     counters, plain = got[3], want[3]
     assert counters["sort_keys.fused"] == keyed and "sort_keys.plain" not in counters
-    assert counters["launches.ray_keys"] == 2 * reflections - 1
+    assert counters["launches.ray_keys"] == 2 * reflections
     assert plain["sort_keys.plain"] == keyed and "sort_keys.fused" not in plain
     assert plain["launches.ray_keys"] == 0
-    assert counters["bounces.graph"] == reflections - (NUM_IMAGE_SOURCE - 1)
+    assert counters["bounces.graph"] == reflections
+    assert counters["bounces.image_graph"] == NUM_IMAGE_SOURCE - 1
